@@ -1,7 +1,7 @@
 """Typed configuration tree with TOML persistence and secret storage.
 
-TPU-native rebuild of the reference's config subsystem
-(/root/reference/src-tauri/src/modules/config/): `ConfigManager` keeps a
+Rebuild of the reference's config subsystem
+(reference: src-tauri/src/modules/config/): `ConfigManager` keeps a
 hot-swappable snapshot (the ArcSwap pattern, manager.rs:96-148) with
 ``update(closure)`` read-modify-write; `UserConfig` is a dataclass tree
 persisted as TOML; secrets come from env vars or a 0600 file (the Keychain

@@ -1,7 +1,7 @@
 """Config schema: the dataclass tree persisted to TOML.
 
 Mirrors the reference's ``UserConfig { api, audio, input, hotkeys, ui }``
-(config/manager.rs:17-94) with the TPU framework's sections: api (external
+(config/manager.rs:17-94) with this framework's sections: api (external
 sink credentials), audio (ingest/kernel params — the AudioSettings analog),
 session (streaming), obs (metrics/logging). Graphs themselves are serialized
 via :class:`GraphSpec` + the node registry.

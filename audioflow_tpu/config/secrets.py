@@ -1,7 +1,7 @@
 """Credential storage for external sinks.
 
 The reference shells out to the macOS Keychain (secure_storage.rs:36-107);
-the TPU-cluster analog is env vars and a mode-0600 secrets file. Same trait
+the server analog is env vars and a mode-0600 secrets file. Same trait
 shape: store / retrieve / delete (secure_storage.rs:18-33), with the
 ElevenLabs-named convenience preserved as a default account name.
 """

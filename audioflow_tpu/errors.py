@@ -1,7 +1,7 @@
 """Typed error hierarchy with error codes and retry policy.
 
-TPU-native rebuild of the reference's unified error system
-(`/root/reference/src-tauri/src/error.rs:8-236`): an ``AppError`` umbrella over
+Rebuild of the reference's unified error system
+(`reference: src-tauri/src/error.rs:8-236`): an ``AppError`` umbrella over
 four domain enums (Audio/Network/Input/Config), screaming-snake ``ErrorCode``
 strings, an ``is_recoverable`` predicate, and a ``RecoveryStrategy`` enum
 including exponential backoff.  Here the domains map onto the new framework's

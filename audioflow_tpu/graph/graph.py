@@ -1,10 +1,10 @@
 """The flow-graph: a chain of nodes compiled to ONE jitted XLA program.
 
-This is the framework's core API (the TPU re-design of the reference's L3
+This is the framework's core API (the accelerator re-design of the reference's L3
 command surface, SURVEY §1): where the reference chains per-module Rust calls
 (capture -> BatchResampler -> VAD -> encode, SURVEY §3.3), a Graph traces the
 whole node chain once and hands XLA a single program to fuse, tile onto the
-MXU, and (with shardings, see :mod:`audioflow_tpu.parallel`) partition over a
+device, and (with shardings, see :mod:`audioflow_tpu.parallel`) partition over a
 device mesh.
 
 Two execution modes:
@@ -85,8 +85,10 @@ class Graph:
         return self.chain(x)
 
     # auto-chunk threshold: below this many input samples the whole-array
-    # program is fine; above it, per-stage [batch, T]-sized intermediates
-    # blow past cache and the chunked form wins ~30% (BENCHMARKS.md)
+    # program runs; above it, the chunked form keeps per-stage [batch, T]
+    # intermediates out of device memory. On an H100 (400 W limit) config 2
+    # (256 x 10 s at 44.1 kHz) ran 12.33 ms chunked vs 11.26 ms whole-array,
+    # so this threshold and the chunk size are open for a sweep.
     _CHUNKED_MIN_T = 65536
 
     def compile(
@@ -99,11 +101,10 @@ class Graph:
 
         ``chunked`` — long-signal execution strategy. The whole-array
         program materializes every node's [batch, T]-sized intermediate in
-        HBM between stages; running the SAME chain as a ``lax.scan`` over
-        fixed chunks keeps each step cache-resident and measures ~30% faster
-        on TPU (the streaming-mode effect, BENCHMARKS.md), while the
-        delay-alignment machinery makes the result equal to the whole-array
-        program to f32 reassociation noise. ``"auto"`` (default) picks the
+        device memory between stages; running the SAME chain as a
+        ``lax.scan`` over fixed chunks keeps each step's working set small,
+        while the delay-alignment machinery makes the result equal to the
+        whole-array program to f32 reassociation noise. ``"auto"`` (default) picks the
         chunked form when the graph is streamable, untapped, and the input
         is long; ``True``/``False`` force it.
         """

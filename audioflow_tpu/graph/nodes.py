@@ -8,7 +8,7 @@ SURVEY §5.6) with two execution modes:
   star's "chained transform nodes compile to a single jitted XLA program").
 * ``init_carry(...)`` / ``step(carry, chunk)`` — streaming mode with O(1)
   carried state (resampler history, STFT overlap, IIR state, VAD machine,
-  limiter envelope), the TPU analog of the reference's accumulate-and-chunk
+  limiter envelope), the on-device analog of the reference's accumulate-and-chunk
   pipeline (capture ring -> BatchResampler -> VAD, SURVEY §3.3). Carries are
   ordinary pytrees, so they double as the checkpoint format (SURVEY §5.4).
 
@@ -443,8 +443,8 @@ class Stft(Node):
 @register_node
 @dataclass(frozen=True)
 class Spectrogram(Node):
-    """Fused power/magnitude spectrogram: windowed real DFT as two MXU
-    matmuls (impl='matmul', ~1.5x faster than XLA FFT on v5e) or via rfft.
+    """Fused power/magnitude spectrogram: windowed real DFT as two matmuls
+    (impl='matmul') or via rfft.
     Streaming semantics identical to Stft."""
 
     n_fft: int = 1024
@@ -528,9 +528,9 @@ class Power(Node):
 @register_node
 @dataclass(frozen=True)
 class LogMelSpec(Node):
-    """Fused log-mel spectrogram: two zero-pad-waste MXU dots
-    (ops/mel.py::log_mel_fused) — measured +13% over the Spectrogram +
-    MelProject pair at the same precisions (BENCHMARKS.md). Streaming
+    """Fused log-mel spectrogram: two zero-pad-waste dots
+    (ops/mel.py::log_mel_fused), the same features as the Spectrogram +
+    MelProject pair at the same precisions. Streaming
     semantics identical to Spectrogram (hop-aligned overlap carry)."""
 
     n_fft: int = 1024
@@ -606,7 +606,7 @@ class LogMelSpec(Node):
 @register_node
 @dataclass(frozen=True)
 class MelProject(Node):
-    """power/magnitude frames -> (log-)mel features; one MXU matmul."""
+    """power/magnitude frames -> (log-)mel features; one matmul."""
 
     n_mels: int = 128
     sample_rate: int | None = None
@@ -1408,7 +1408,7 @@ class GriffinLim(Node):
     n_iter: int = 32
     momentum: float = 0.99
     center: bool = True
-    impl: str = "auto"  # fused pallas iteration kernel on TPU
+    impl: str = "matmul"
     streamable = False
 
     domain_in = "frames"
@@ -1468,11 +1468,10 @@ class Yin(Node):
     ``[..., F, 2]`` (ops/pitch.py). Streaming mirrors Stft's hop-aligned
     overlap carry (center=False), so streamed == offline exactly.
 
-    Sharding note: ``impl`` follows ops/pitch.py — "auto" runs the matmul
-    ACF on TPU (3x faster there AND batch-shards with zero collectives,
-    like every matmul-DFT node) and the FFT ACF elsewhere; the FFT form is
-    the one GSPMD all-gathers (asserted in tests). Force ``impl="matmul"``
-    on shard-sensitive CPU paths."""
+    Sharding note: ``impl`` follows ops/pitch.py — "auto" runs the FFT ACF,
+    the form GSPMD all-gathers under batch sharding (asserted in tests);
+    the matmul ACF batch-shards with zero collectives, like every
+    matmul-DFT node. Force ``impl="matmul"`` on shard-sensitive paths."""
 
     fmin: float = 65.0
     fmax: float = 2093.0

@@ -1,6 +1,6 @@
 """FLAC codec in pure Python — lossless decode oracle + encoder.
 
-Extends the framework's file-source layer (SURVEY §2.2 "TPU equivalent" of
+Extends the framework's file-source layer (SURVEY §2.2 of
 the reference's capture source; the reference itself has no file codecs at
 all) with a second container format. Mirrors the WAV design exactly:
 this module is the portable path AND the behavioral oracle; the

@@ -112,7 +112,7 @@ class BatchLoader:
     """Iterate file batches with a background decode thread (prefetch=2).
 
     While the device crunches batch k, the loader decodes batch k+1 on host
-    CPU threads — the ingest never stalls the TPU unless decode itself is the
+    CPU threads — the ingest never stalls the device unless decode itself is the
     bottleneck (then raise ``n_threads`` via the native decoder).
     """
 
@@ -146,9 +146,9 @@ class BatchLoader:
         sentinel = object()
 
         # Staging-buffer ring (only with a fixed stride): decoding into a
-        # warm, reused buffer is ~2.7x faster than into a fresh np allocation
-        # (each 41 MB np.zeros is a cold mmap and the decode write loop pays
-        # one page fault per page — measured in BENCHMARKS.md "Host decode").
+        # warm, reused buffer avoids a fresh np allocation per batch (each
+        # 41 MB np.zeros is a cold mmap and the decode write loop pays one
+        # page fault per page).
         # Ring depth prefetch+3 means a buffer is recycled only after that
         # many newer batches were yielded; consumers (runner.run_batches)
         # device_put the samples within one step, far inside that window.

@@ -1,7 +1,8 @@
 """ctypes binding to the C++ WAV batch decoder (native/wavcodec.cpp).
 
-Builds the shared library on first use if the toolchain is present; falls
-back cleanly (callers check :func:`available`). The numpy codec in
+Runs ``make`` on first use, which builds the shared library when it is
+missing or older than its sources; without a toolchain it falls back cleanly
+(callers check :func:`available`). The numpy codec in
 :mod:`audioflow_tpu.io.wav` is the behavioral oracle — both are tested for
 bit-identical output.
 """
@@ -41,8 +42,10 @@ def _load():
     global _lib, _load_error
     if _lib is not None or _load_error is not None:
         return _lib
-    if not _LIB_PATH.exists() and not _build():
-        _load_error = "libwavcodec.so missing and build failed"
+    # make rebuilds a library older than its sources and does nothing when
+    # it is fresh, so the loaded code always matches the committed sources
+    if not _build():
+        _load_error = "building libwavcodec.so failed"
         return None
     try:
         lib = ctypes.CDLL(str(_LIB_PATH))
@@ -91,10 +94,8 @@ def decode_batch_mono(
     ``out``, if given, is the destination buffer (``[n, stride]`` f32,
     C-contiguous) and is returned; the C++ side zeroes every lane before
     writing, so no host-side clear is needed. Reusing a warm buffer across
-    batches nearly triples decode throughput: a fresh 41 MB allocation is
-    cold-mmap'd and the decode loop pays one page fault per written page
-    (measured 46 ms cold vs 17 ms warm for 64x10 s files — BENCHMARKS.md
-    "Host decode").
+    batches avoids the cold mmap of a fresh 41 MB allocation, whose decode
+    loop pays one page fault per written page.
     """
     lib = _load()
     if lib is None:

@@ -2,7 +2,7 @@
 
 Replaces the reference's cpal capture source (capture.rs:164-351) with file
 ingestion: the framework's sources are files/arrays, not microphones
-(SURVEY §2.2 "TPU equivalent" for AudioCapturer). A faster multithreaded C++
+(SURVEY §2.2 for AudioCapturer). A faster multithreaded C++
 decoder with the same contract lives in :mod:`audioflow_tpu.io.native`; this
 module is the fallback and the oracle the native path is tested against.
 

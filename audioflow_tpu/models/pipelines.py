@@ -51,9 +51,7 @@ def log_mel_frontend(
     (optional EQ) -> STFT -> power -> 128-bin log-mel.
 
     ``fused=True`` swaps the Spectrogram+MelProject pair for the
-    :class:`~audioflow_tpu.graph.LogMelSpec` two-dot form — +13% on
-    whole-array programs, a measured wash inside the chunked scan the
-    frontend actually compiles to (BENCHMARKS.md "Combined-bank DFT"), so
+    :class:`~audioflow_tpu.graph.LogMelSpec` two-dot form (same features);
     the well-characterized two-node form stays the default."""
     from ..graph import LogMelSpec
 

@@ -6,7 +6,9 @@ the fixed STFT: learnable per-mel filter gains, PCEN-style compression with
 learnable (alpha, delta, r), and a linear classifier head — a standard
 trainable audio frontend. Its ``train_step`` is the framework's canonical
 multi-chip training path: batch sharded over the mesh's data axis, parameters
-replicated, XLA inserting the gradient all-reduce over ICI.
+replicated, XLA inserting the gradient all-reduce. It needs ``optax``,
+which is imported by the functions that use it: the inference path imports
+only jax and numpy.
 """
 
 from __future__ import annotations
@@ -17,7 +19,6 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-import optax
 
 from ..ops import mel_filterbank, power, stft
 
@@ -35,7 +36,7 @@ class TrainableFrontend:
     # axis (Megatron split: w1 column-sharded, w2 row-sharded, one psum)
     smoothing: float = 0.04  # PCEN EMA coefficient (fixed; scan carry-free via conv)
     remat: bool = False  # jax.checkpoint the feature extractor: trade FLOPs
-    # for HBM when the frontend feeds a large model (the standard TPU move)
+    # for device memory when the frontend feeds a large model
 
     def init_params(self, seed: int = 0) -> dict:
         k1, k2 = jax.random.split(jax.random.PRNGKey(seed))
@@ -96,6 +97,8 @@ class TrainableFrontend:
         return feats @ params["w"] + params["b"]
 
     def loss(self, params: dict, x: jnp.ndarray, y: jnp.ndarray) -> jnp.ndarray:
+        import optax
+
         lg = self.logits(params, x)
         return optax.softmax_cross_entropy_with_integer_labels(lg, y).mean()
 
@@ -110,8 +113,8 @@ def make_train_step(
     """Build a jitted ``train_step(params, opt_state, x, y)``.
 
     With ``mesh``, the batch (x, y) is sharded over the data axis and params
-    are replicated; the mean-gradient all-reduce is the only collective and
-    rides ICI — the framework's canonical multi-chip step (SURVEY §2.6).
+    are replicated; the mean-gradient all-reduce is the only collective —
+    the framework's canonical multi-chip step (SURVEY §2.6).
 
     With ``model_axis`` too (requires ``model.hidden > 0`` and a 2-D mesh,
     e.g. ``make_mesh(8, axes=("data", "model"), shape=(4, 2))``), the MLP
@@ -121,6 +124,8 @@ def make_train_step(
     of the sharded params stay sharded (their optimizer state too — the
     update is elementwise), giving DP x TP with no manual collectives.
     """
+    import optax
+
     optimizer = optimizer or optax.adam(1e-3)
 
     def step(params, opt_state, x, y):

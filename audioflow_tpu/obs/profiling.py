@@ -8,14 +8,12 @@ import contextlib
 
 @contextlib.contextmanager
 def profile_trace(log_dir: str | None):
-    """Capture a device trace viewable in TensorBoard/XProf; no-op if dir empty."""
+    """Capture a device trace viewable in TensorBoard/XProf; no-op if dir
+    empty. A profiler failure and an error in the traced body both raise."""
     if not log_dir:
         yield
         return
     import jax
 
-    try:
-        with jax.profiler.trace(log_dir):
-            yield
-    except (RuntimeError, OSError):  # profiler unavailable on this backend
+    with jax.profiler.trace(log_dir):
         yield

@@ -1,7 +1,7 @@
-"""Kernel library: the TPU-native replacement of the reference's DSP modules
-(/root/reference/src-tauri/src/modules/audio/) plus the north-star ops.
+"""Kernel library: the on-device replacement of the reference's DSP modules
+(reference: src-tauri/src/modules/audio/) plus the north-star ops.
 
-Everything here is pure-functional jnp/Pallas code with static shapes, meant
+Everything here is pure-functional jnp/lax code with static shapes, meant
 to be composed by :mod:`audioflow_tpu.graph` into one jitted XLA program.
 """
 

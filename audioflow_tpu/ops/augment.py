@@ -1,7 +1,7 @@
 """SpecAugment-style feature augmentation (Park et al. 2019) for the
 trainable frontend: time and frequency masking over feature tensors.
 
-TPU formulation: a masked region [t0, t0 + w) with random t0/w is expressed
+Formulation: a masked region [t0, t0 + w) with random t0/w is expressed
 as a broadcast index compare — static shapes, jit/vmap-clean, PRNG threaded
 explicitly (jax convention). No data-dependent slicing anywhere.
 """

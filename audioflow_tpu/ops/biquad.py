@@ -1,11 +1,11 @@
-"""Biquad IIR filters and cascades on TPU via blocked state-space matmuls.
+"""Biquad IIR filters and cascades via blocked state-space matmuls.
 
 The hard part (SURVEY §7.3 #1): IIR recurrences are inherently sequential in
-time, which is hostile to a 128x128 systolic array. Instead of a per-sample
+time, which is hostile to matrix units. Instead of a per-sample
 scan, a cascade of biquads is lifted to state-space form and processed in
 blocks of ``Bk`` samples:
 
-    y_blk  = x_blk @ T^t + s0 @ O^t          (MXU matmuls)
+    y_blk  = x_blk @ T^t + s0 @ O^t          (matmuls)
     s_next = s0 @ (A^Bk)^t + x_blk @ U^t
 
 where ``T`` is the lower-triangular Toeplitz matrix of the cascade's impulse

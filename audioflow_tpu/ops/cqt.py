@@ -1,9 +1,9 @@
-"""Constant-Q transform (CQT) as MXU matmuls against precomputed kernels.
+"""Constant-Q transform (CQT) as matmuls against precomputed kernels.
 
 The reference app has no CQT (its analysis stops at VAD energy); this is
 part of the framework's music-analysis family (chroma, tonnetz, rhythm).
 The classic CPU algorithm (Brown/Puckette via recursive downsampling +
-sparse FFT kernels) is replaced by a TPU-first formulation:
+sparse FFT kernels) is replaced by a matmul formulation:
 
 * every CQT bin is a windowed complex sinusoid kernel; a frame of signal
   dotted with the kernel bank IS the transform — the same matmul-DFT
@@ -13,19 +13,16 @@ sparse FFT kernels) is replaced by a TPU-first formulation:
   cos/sin banks (no complex arithmetic on device);
 * ``impl="onedot"`` (default) concatenates every octave's kernels —
   zero-padded to the full frame span — into ONE ``[F0, 2*n_bins]`` bank:
-  one framing, one dot. The op is HBM-bound on the framed-signal read, not
-  MAC-bound, so the "wasted" zero MACs are free and the single-dot form is
-  the fastest measured (6.9 vs 8.7 ms for per-octave dots at batch
-  64x10 s) with the fastest compile. ``impl="split"`` (per-octave frame
+  one framing, one dot. The op is bound by the framed-signal read, not by
+  MACs, so the "wasted" zero MACs cost little and the single-dot form
+  compiles fastest. ``impl="split"`` (per-octave frame
   lengths, ~12x fewer MACs) and ``impl="direct"`` (per-octave dots at full
   length) are kept for the exact-equality tests — all three are
   bit-identical up to f32 summation of exact zeros;
 * every frame length is rounded up to a multiple of ``hop`` so framing
-  takes ops/framing.py's static-slice fast path. The first cut used the
-  raw odd kernel length (8229 at fmin=C1/16 kHz), which forced the gather
-  fallback — a [frames, 8229] index gather materializing ~32x the signal
-  through HBM, measured 61 ms at batch 64x10 s where the dots alone are
-  <1 ms (BENCHMARKS.md "CQT framing").
+  takes ops/framing.py's static-slice fast path. The raw odd kernel length
+  (8229 at fmin=C1/16 kHz) would force the gather fallback — a [frames,
+  8229] index gather materializing ~32x the signal in device memory.
 
 Geometry: frame t's kernels are centered at sample ``t * hop`` when
 ``center=True`` (zero-padded edges — kernels of several thousand samples
@@ -175,13 +172,13 @@ def cqt(
     See the module docstring for the frame geometry and normalization.
 
     ``output``: "magnitude" | "power" | "complex".
-    ``impl``: "onedot" (one concatenated bank, one dot; default — measured
-    fastest, the op is HBM-bound), "split" (per-octave frame lengths) or
+    ``impl``: "onedot" (one concatenated bank, one dot; default — the op is
+    bound by memory, not MACs), "split" (per-octave frame lengths) or
     "direct" (per-octave dots at the full frame length) — identical
     results.
     ``precision``: matmul precision (None -> ops/stft.py
-    ``DFT_PRECISION_DEFAULT`` = 'high'; measured 1.5e-5 relative vs
-    'highest' on chip — gated by the cqt_440_mag_err validate row).
+    ``DFT_PRECISION_DEFAULT`` = 'high'; gated by the cqt_440_mag_err
+    validate row).
     ``multirate=True`` returns the invertible per-octave-hop variant (a
     :class:`MultirateCqt` pytree, one array per octave at its own hop —
     see :func:`cqt_multirate`; requires center=True). Use it when the
@@ -499,8 +496,7 @@ def _window_cos_coeffs(window: str, n_terms: int = 6) -> np.ndarray:
     (``w[n] = sum_j a_j cos(2 pi j n' / (N-1))``), fit by least squares on a
     long instance. The hybrid inverse's sinusoid estimator needs the window
     spectrum ``|W(u)|/W(0)`` EVERYWHERE on device; a table + ``jnp.interp``
-    is a serial-emulated TPU gather (measured 1.3 s/call at the benchmark
-    shape), while the cosine-sum form gives the closed expression
+    is a large gather, while the cosine-sum form gives the closed expression
     ``sum_j (a_j/2)(sinc(u-j) + sinc(u+j))`` — pure elementwise. Raises for
     windows that are not cosine sums (residual > 1e-5)."""
     n_w = 4096
@@ -546,7 +542,7 @@ def _hybrid_design(
     through the neighbor bin's differing response (measured 36 dB).
     ``nd_mult=4`` matters: at nd_mult=2 the 0.95 Hz design grid is too
     coarse for that cancellation off-grid (measured 0.1 dB -> 36.3 dB at
-    nd_mult=4; scripts/proto_icqt_lowbin.py sweep).
+    nd_mult=4 in a float64 design sweep).
 
     **Crossfade.** Duals are kept for bins up to ``k_last + 5`` (k_last =
     last bin with ``N_k >= 3*hop``) and tapered to zero over
@@ -678,11 +674,11 @@ def _icqt_hybrid(
 
     Measured at the framework default (hop 256 / 84 bins / 16 kHz, f64
     prototype): >= ~35 dB tone SNR at every bin center, 38-78 dB at
-    quarter/half-bin offsets, 61 dB two-tone; the on-chip figure is gated
+    quarter/half-bin offsets, 61 dB two-tone; the float32 figure is gated
     by the ``icqt_tone_snr_db`` validate row. Steady-state figures — edge
     transients span the dual support (``nd/2`` samples each side).
     """
-    from ._mm import _PRECISIONS
+    from ._mm import conv_precision
 
     if c.shape[-1] != n_bins:
         raise ValueError(
@@ -695,7 +691,7 @@ def _icqt_hybrid(
     n_frames = c.shape[-2]
     if length is None:
         length = (n_frames - 1) * hop
-    prec = _PRECISIONS[precision or DFT_PRECISION_DEFAULT]
+    prec = conv_precision(precision or DFT_PRECISION_DEFAULT)
     re = jnp.real(c).astype(jnp.float32)
     im = jnp.imag(c).astype(jnp.float32)
     lead = re.shape[:-2]
@@ -735,7 +731,7 @@ def _icqt_hybrid(
     freqs = jnp.asarray(dz["freqs"])
     lens = jnp.asarray(dz["lengths"])
     # closed-form window spectrum |W(u)|/W(0) from the cosine-sum fit —
-    # elementwise sincs, NO table gather (jnp.interp here measured 1.3 s)
+    # elementwise sincs, NO table gather
     wcos = dz["wcos"]
 
     def h_of(u):
@@ -768,7 +764,7 @@ def _icqt_hybrid(
         + has_up * (r_pred_up - r_obs_up) ** 2
     )
     s_best = jnp.min(score, axis=-1)
-    # first-minimum one-hot select (take_along_axis is a serial TPU gather)
+    # first-minimum one-hot select instead of a take_along_axis gather
     hit = score == s_best[..., None]
     hit = hit & (jnp.cumsum(hit, axis=-1) == 1)
     f_hat = jnp.sum(jnp.where(hit, f_cand, 0.0), axis=-1)
@@ -783,8 +779,7 @@ def _icqt_hybrid(
     n_rel = jnp.arange(2 * hop, dtype=jnp.float32) - hop
     win = 0.5 - 0.5 * jnp.cos(2.0 * np.pi * jnp.arange(2 * hop) / (2 * hop))
     # top-P component selection: the burst cos over [.., T, K, 2h] is the
-    # stage's hot spot (~9 of the hybrid's 25 ms at the knockout config —
-    # bench_records/chip_r5_icqt.jsonl); per frame only a handful of peaks
+    # stage's hot spot; per frame only a handful of peaks
     # survive the score gate, so synthesize the `max_components` largest
     # weights only. EXACT whenever <= P components have wgt > 0 (every
     # tonal case — the transform's signal model); dense noise frames drop
@@ -852,8 +847,8 @@ def multirate_hops(
     where W is regularization-floored while the duals' band mask is still
     open inside the mainlobe — at the N/3 hop a tone at bin 80 of the
     default config synthesized a clean alias image at f + sr/16 (measured
-    16.5 dB round-trip; the tighter hop clears the skirt and the full
-    84-bin sweep reads >= ~54 dB, bench_records/chip_r5_icqt_sweep.jsonl).
+    16.5 dB round-trip; the tighter hop clears the skirt and a full 84-bin
+    sweep reads >= ~54 dB).
     At the framework default (hop 256 / 84 bins / 16 kHz) the hops are
     ``(256, 256, 256, 128, 64, 32, 8)``."""
     from ..errors import AudioError, ErrorCode
@@ -906,7 +901,7 @@ def _multirate_design(
     BROADBAND signals, not just tones — the f64 prototype at the framework
     default measures 60.0 dB on 800-2000 Hz band noise and 57.3 dB on a
     150 Hz harmonic complex, the two signals where the fixed-hop hybrid
-    measured -10.1 dB / 7.9 dB (scripts/proto_multirate_icqt.py).
+    measured -10.1 dB / 7.9 dB.
 
     Each octave's dual is truncated to a centered span
     ``min(nd, max(4*flen_o, 32*h_o))`` with a raised-cosine edge taper over
@@ -960,7 +955,7 @@ def _multirate_design(
     # aliasing, see multirate_hops) doubles W's peak, and a floor tracking
     # that rescale over-regularizes the fmin band edge (bin 0 measured
     # 40.5 dB at the N/3-referenced floor vs 23.4 dB tracking the
-    # tightened hop; scripts/proto_multirate_icqt.py study).
+    # tightened hop, in a float64 design study).
     ref_hops = multirate_hops(
         sample_rate, hop, n_bins, fmin, bins_per_octave, filter_scale,
         top_divisor=3,
@@ -1003,9 +998,7 @@ def _multirate_design(
             sub = sub * (0.5 * (1.0 + np.cos(np.pi * u)))[None, :]
         # synthesis as a Tb-tap hop-block feature conv (the _hybrid_design
         # kern trick): y_blk[S, r] = sum_q ri[S-q] @ sub[:, q*h + r] — no
-        # [T_o, span] frame tensor is materialized (the frames+overlap_add
-        # form measured 36.6 ms vs the conv's ~8 at the knockout config,
-        # bench_records/chip_r5_icqt.jsonl)
+        # [T_o, span] frame tensor is materialized
         tb = span // h
         nb2 = sub.shape[0]
         kern = sub.reshape(nb2, tb, h)[:, ::-1, :]
@@ -1111,7 +1104,7 @@ def cqt_multirate(
     output: str = "complex",
     precision: str | None = None,
 ) -> MultirateCqt:
-    """Invertible multirate CQT (VERDICT r4 item 1): every octave analyzed
+    """Invertible multirate CQT: every octave analyzed
     at its own hop inside its painless bound (:func:`multirate_hops`), so
     — unlike the fixed-hop :func:`cqt` at coarse hops — the transform has a
     TRUE linear inverse for arbitrary in-band signals, gated broadband by
@@ -1172,7 +1165,7 @@ def icqt_multirate(
     in the pytree's static meta). Edge transients span ``nd/2`` samples
     each side.
     """
-    from ._mm import _PRECISIONS
+    from ._mm import conv_precision
 
     if not isinstance(c, MultirateCqt):
         raise TypeError(
@@ -1189,7 +1182,7 @@ def icqt_multirate(
         m.sample_rate, m.hop, m.n_bins, m.fmin, m.bins_per_octave, m.window,
         m.filter_scale,
     )
-    prec = _PRECISIONS[precision or DFT_PRECISION_DEFAULT]
+    prec = conv_precision(precision or DFT_PRECISION_DEFAULT)
     if length is None:
         length = m.length
     y = None

@@ -36,8 +36,7 @@ def median_network(n: int) -> tuple[tuple[int, int], ...]:
     to one ``minimum`` + one ``maximum`` on whole arrays, so the filter is
     a pure elementwise chain over shifted views that XLA fuses into one
     pass — no ``[..., N, size]`` window tensor, no sort (the sort-based
-    form materializes size× the input in HBM both ways and is the
-    documented HPSS bottleneck, BENCHMARKS.md)."""
+    form materializes size× the input in device memory both ways)."""
     comps = []
     for p in range(n):
         for i in range(p % 2, n - 1, 2):
@@ -222,8 +221,8 @@ def nmf(
     audio source-separation decomposition (each template a note/source
     spectrum, each activation its gain envelope).
 
-    TPU formulation: Lee-Seung multiplicative updates (``"frobenius"`` or
-    ``"kl"``) as a ``lax.fori_loop`` whose body is four MXU matmuls and two
+    Formulation: Lee-Seung multiplicative updates (``"frobenius"`` or
+    ``"kl"``) as a ``lax.fori_loop`` whose body is four matmuls and two
     elementwise ratios — no data-dependent control flow, batched over
     leading axes, same machinery as the mel NNLS inverse (ops/mel.py).
     Initialization is deterministic uniform-random from ``seed`` (jax PRNG),

@@ -1,7 +1,7 @@
 """Time-based effects: feedback delay/echo, tremolo, vibrato, chorus, flanger.
 
 The reference app has no effects engine; this family covers the classic
-delay-line effects on the framework's substrate. TPU formulations:
+delay-line effects on the framework's substrate. Formulations:
 
 * the feedback comb ``w[n] = x[n-D] + g*w[n-D]`` has no dependency shorter
   than D samples, so it runs as a ``lax.scan`` over D-sample blocks — each

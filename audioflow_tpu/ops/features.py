@@ -2,8 +2,8 @@
 
 The classic analysis feature family (librosa conventions, so outputs are
 oracle-checkable): spectral centroid / bandwidth / rolloff / flatness /
-flux, zero-crossing rate, frame RMS. All are cheap VPU reductions over a
-spectrogram the MXU already produced — XLA fuses them into the spectrogram
+flux, zero-crossing rate, frame RMS. All are cheap reductions over a
+spectrogram already produced — XLA fuses them into the spectrogram
 consumer, so a features tap costs almost nothing on top of a log-mel
 pipeline.
 
@@ -158,7 +158,7 @@ def chroma(
     tuning: float = 0.0,
 ) -> jnp.ndarray:
     """Chromagram from a power spectrogram ``[..., F, bins]`` ->
-    ``[..., F, n_chroma]`` (one MXU matmul + optional per-frame max-norm,
+    ``[..., F, n_chroma]`` (one matmul + optional per-frame max-norm,
     the librosa.feature.chroma_stft convention)."""
     from ._mm import mm
 
@@ -258,7 +258,7 @@ def pcen(
     energy spectrogram ``[..., T, F]``.
 
     ``M[t] = (1-s) M[t-1] + s E[t]`` (first-order IIR along time, evaluated
-    as an associative scan — O(log T) depth on TPU), then
+    as an associative scan — O(log T) depth), then
     ``PCEN = (E / (eps + M)^alpha + delta)^r - delta^r``. ``initial`` seeds
     M[-1] (defaults to the E[0] warm start that avoids the transient of a
     zero seed).

@@ -1,9 +1,9 @@
-"""FIR filtering: windowed-sinc design + causal convolution on TPU.
+"""FIR filtering: windowed-sinc design + causal convolution.
 
 Complements the IIR biquad engine (ops/biquad.py) with linear-phase FIR:
 design is host-side float64 windowed-sinc (scipy.signal.firwin conventions,
-oracle-checkable), application is either an XLA 1-D convolution (MXU-lowered
-on TPU; short/medium kernels) or FFT fast convolution (long kernels, e.g.
+oracle-checkable), application is either an XLA 1-D convolution (short/medium
+kernels) or FFT fast convolution (long kernels, e.g.
 convolution reverb with impulse responses of 10k+ taps). Causal semantics
 with explicit prehistory state make streaming exact with zero latency:
 ``zf`` is the last ``K-1`` input samples — the carry and the checkpoint.
@@ -100,18 +100,18 @@ def fir_apply(
         impl = "fft" if k > 192 else "direct"
     if impl == "direct":
         # XLA 1-D convolution (correlation semantics -> flip the kernel).
-        # The TPU conv default truncates f32 -> bf16 before the MXU — audible
-        # (~3e-3 relative) on filter outputs — so the conv inherits the
+        # A reduced-precision conv (bf16 or TF32 passes) is audible (~3e-3
+        # relative) on filter outputs, so the conv inherits the
         # framework's fidelity-critical matmul precision (ops/_mm.py), the
         # same rule every DFT/resample bank follows.
-        from ._mm import _PRECISIONS, get_default_matmul_precision
+        from ._mm import conv_precision
 
         b = int(np.prod(lead)) if lead else 1
         lhs = xx.reshape(b, 1, xx.shape[-1])
         rhs = jnp.flip(h, -1).reshape(1, 1, k)
         y = jax.lax.conv_general_dilated(
             lhs, rhs, (1,), "VALID",
-            precision=_PRECISIONS[get_default_matmul_precision()],
+            precision=conv_precision(),
         )
         y = y.reshape(*lead, -1)
     elif impl == "fft":

@@ -1,11 +1,11 @@
 """Framing and overlap-add primitives.
 
-TPU notes: framing is expressed as k static slices + reshape when
+Notes: framing is expressed as k static slices + reshape when
 ``frame_length % hop == 0`` (the common STFT case), which XLA fuses into the
 downstream window-multiply with no gather; otherwise it falls back to one
 gather with a trace-time-constant index matrix. All shapes are static under
 jit. Replaces the per-chunk Vec copies of the reference's capture path
-(/root/reference/src-tauri/src/modules/audio/capture.rs:103-161) with
+(reference: src-tauri/src/modules/audio/capture.rs:103-161) with
 whole-batch tensor ops.
 """
 

@@ -1,7 +1,7 @@
 """Griffin-Lim phase reconstruction (magnitude spectrogram -> waveform).
 
 Fast Griffin-Lim (momentum-accelerated alternating projections): each
-iteration is one ISTFT + one STFT — on TPU both are MXU matmul-DFT banks, so
+iteration is one ISTFT + one STFT — both matmul-DFT banks by default, so
 the whole loop is a ``lax.fori_loop`` over batched matmuls with static
 shapes (no data-dependent control flow; jit-clean, shard-clean on the batch
 axis). Completes the spectral family: analysis (stft/spectrogram/mel),
@@ -20,6 +20,9 @@ import jax.numpy as jnp
 from .stft import istft, stft
 
 
+_IMPLS = ("matmul", "fft")
+
+
 def griffin_lim(
     mag: jnp.ndarray,
     n_fft: int = 1024,
@@ -29,7 +32,7 @@ def griffin_lim(
     momentum: float = 0.99,
     center: bool = True,
     length: int | None = None,
-    impl: str = "auto",
+    impl: str = "matmul",
     precision: str | None = "default",
     init_phase: jnp.ndarray | None = None,
 ) -> jnp.ndarray:
@@ -40,20 +43,13 @@ def griffin_lim(
       n_iter: projection iterations; 32 is the librosa default.
       momentum: fast-GL acceleration in [0, 1); 0 = classic Griffin-Lim.
       length: output sample count (defaults to the istft natural length).
-      impl: DFT implementation for the inner stft/istft ("matmul" keeps the
-        loop on the MXU; "fft" uses XLA's FFT; "pallas" fuses each whole
-        iteration — momentum, magnitude replacement, inverse DFT,
-        overlap-add, re-analysis — into one VMEM-resident kernel pass, see
-        ops/pallas/griffinlim.py, including its documented edge-frame
-        convention). "auto" (default) picks "pallas" on TPU when the
-        config is supported, else "matmul".
-      precision: MXU precision of the DFT banks. Defaults to "default"
-        (bf16): the magnitude-replacement projection renormalizes every
-        iteration, so bf16 rounding does not accumulate — measured on chip
-        at batch 64x10 s / 8 iters the spectral convergence error is EQUAL
-        (0.1706 bf16 vs 0.1725 bf16x3) and the loop runs 1.38x faster
-        (46.3 vs 63.7 ms). Pass None for the stft module default ("high")
-        or "highest" for bf16x6 banks.
+      impl: DFT implementation for the inner stft/istft: "matmul"
+        (default; DFT banks as matrix products) or "fft" (XLA's FFT).
+      precision: matmul precision of the DFT banks. Defaults to "default":
+        the magnitude-replacement projection renormalizes every iteration,
+        so dot rounding does not accumulate (gated by the
+        ``griffinlim_tone_err`` validate row). Pass None for the stft
+        module default ("high") or "highest" for full float32 banks.
       init_phase: optional initial phase angles (same shape as ``mag``);
         zeros by default — deterministic, and on typical audio converges
         comparably to random init without threading a PRNG key through.
@@ -63,36 +59,9 @@ def griffin_lim(
     """
     if not 0.0 <= momentum < 1.0:
         raise ValueError(f"momentum must be in [0, 1), got {momentum}")
-    mag = jnp.asarray(mag)
-    if impl in ("auto", "pallas"):
-        from .pallas.griffinlim import griffin_lim_pallas, supported
-
-        eligible = (
-            center
-            and n_iter >= 1
-            and mag.ndim >= 2
-            and precision in ("default", "highest")
-            and supported(n_fft, hop, precision=precision)
-        )
-        if impl == "pallas" and not eligible:
-            raise ValueError(
-                "impl='pallas' needs center=True, n_iter >= 1, batched mag, "
-                "precision in ('default', 'highest') and a supported "
-                f"(n_fft={n_fft}, hop={hop}) config"
-            )
-        if impl == "pallas" or (
-            eligible and jax.default_backend() == "tpu"
-        ):
-            return griffin_lim_pallas(
-                mag, n_fft, hop, window=window, n_iter=n_iter,
-                momentum=momentum, length=length, init_phase=init_phase,
-                precision=precision,
-            )
-        impl = "matmul"
-    # Build complex values via lax.complex from real parts: eager complex
-    # CONSTANTS (0j fills, 1j scalars) require a complex host->device upload,
-    # which this TPU runtime does not implement outside jit.
-    mag = mag.astype(jnp.float32)
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown griffin_lim impl {impl!r}; known: {', '.join(_IMPLS)}")
+    mag = jnp.asarray(mag).astype(jnp.float32)
     if init_phase is None:
         spec = jax.lax.complex(mag, jnp.zeros_like(mag))
     else:

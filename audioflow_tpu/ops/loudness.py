@@ -3,7 +3,7 @@
 Production loudness measurement/normalization (EBU R128 workflow) built on
 the framework's own primitives: K-weighting is two biquads through the
 blocked state-space engine (ops/biquad.py), block energies are one framed
-mean-square (MXU-friendly reductions), gating is masked means (static
+mean-square (matmul-friendly reductions), gating is masked means (static
 shapes, data-dependent masks — jit-clean), and true peak rides the
 polyphase resampler. Mono lanes ``[..., T]``; multichannel content should be
 downmixed upstream or measured per lane and combined with the channel

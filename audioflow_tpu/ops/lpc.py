@@ -4,7 +4,7 @@ The reference app has no parametric modeling; LPC completes the analysis
 stack next to YIN/pYIN (source-filter view: pYIN estimates the source, LPC
 the filter) and feeds formant-style work.
 
-TPU formulation: the autocorrelation rides the same MXU matmul banks as the
+Formulation: the autocorrelation rides the same matmul banks as the
 pitch trackers (ops/rhythm.py::autocorrelate, zero-collective under batch
 sharding), and the Levinson-Durbin recursion is a ``lax.scan`` over the
 model order — order+1 steps whose body is a masked gather + fused vector

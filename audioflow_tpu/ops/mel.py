@@ -2,8 +2,7 @@
 
 The filterbank matrix is built host-side in float64 and baked into the graph
 as an ``[n_freqs, n_mels]`` constant, so the mel projection is a single
-``[frames, freqs] @ [freqs, mels]`` matmul — exactly the shape the MXU wants
-(``preferred_element_type=float32`` keeps the accumulation in f32 even under
+``[frames, freqs] @ [freqs, mels]`` matmul (``preferred_element_type=float32`` keeps the accumulation in f32 even under
 bf16 inputs). Supports HTK and Slaney mel scales and Slaney area
 normalization, matching the conventions of librosa/torchaudio so outputs are
 oracle-checkable.
@@ -83,7 +82,7 @@ def mel_filterbank(
 def apply_mel(spec_power: jnp.ndarray, fb: jnp.ndarray) -> jnp.ndarray:
     """Project a power/magnitude spectrogram ``[..., frames, freqs]`` onto mel bins.
 
-    One MXU matmul; f32 accumulation regardless of input dtype.
+    One matmul; f32 accumulation regardless of input dtype.
     """
     return mm(spec_power, jnp.asarray(fb))
 
@@ -118,16 +117,15 @@ def log_mel_fused(
     dft_precision: str | None = None,
     fb_precision: str = "highest",
 ) -> jnp.ndarray:
-    """Log-mel features as exactly two zero-pad-waste MXU dots.
+    """Log-mel features as exactly two zero-pad-waste dots.
 
     The combined cos|sin DFT bank (ops/stft.py::_combined_banks) produces
     ``y = [re 0..N/2 | im 1..N/2-1]`` packed into n_fft lanes; because
     ``mel = fb.T @ (re^2 + im^2)``, stacking ``[fb ; fb[1:n_fft//2]]`` row-
     wise makes ``mel = (y*y) @ fb_stacked`` — the re/im unpack (the
-    513-boundary pad/slice that broke XLA's power->mel fusion, BENCHMARKS.md
-    "Combined-bank DFT") never happens. Measured at batch 256x10 s @16k:
-    13.91 -> 12.34 ms (+13%) vs the two-stage path at the same precisions,
-    log-mel max|delta| 1e-5. Requires even n_fft (callers fall back).
+    513-boundary pad/slice that breaks XLA's power->mel fusion) never
+    happens; log-mel max|delta| vs the two-stage path is 1e-5 at the same
+    precisions. Requires even n_fft (callers fall back).
     """
     if n_fft % 2:
         raise ValueError("log_mel_fused requires even n_fft")
@@ -175,9 +173,9 @@ def mfcc(log_mels: jnp.ndarray, n_mfcc: int = 13) -> jnp.ndarray:
 # Feature inversion: mel/MFCC back to spectrogram and audio.
 #
 # The reference app is analysis-only; inversion completes the feature story
-# (a mel/MFCC pipeline user can hear what their features preserve). TPU
-# formulation: the NNLS mel->spectrogram solve is Lee-Seung multiplicative
-# updates — a fixed-count fori_loop whose body is two MXU matmuls and one
+# (a mel/MFCC pipeline user can hear what their features preserve).
+# Formulation: the NNLS mel->spectrogram solve is Lee-Seung multiplicative
+# updates — a fixed-count fori_loop whose body is two matmuls and one
 # elementwise ratio (no data-dependent control flow); audio then comes from
 # griffin_lim (itself matmul-DFT projections).
 # ---------------------------------------------------------------------------
@@ -196,11 +194,11 @@ def mel_to_stft(
     ``s @ fb ~ m`` and ``s >= 0`` by ``n_iter`` multiplicative updates
     ``s <- s * (m @ fb.T) / (s @ fb @ fb.T)`` from the adjoint init
     ``s0 = m @ fb.T`` (scale self-corrects — the update is ratio-based).
-    ``precision`` defaults to 'high' (bf16x3): unlike griffin_lim's
+    ``precision`` defaults to 'high' (ops/_mm.py): unlike griffin_lim's
     magnitude replacement, the NNLS *fixpoint itself* shifts with dot
-    rounding — measured on chip, bf16 lands 5.7e-3 off in mel space where
-    bf16x3 stays at the 1e-4 scale (gated by the mel_nnls_rel validate
-    row); pass "default" to trade that for speed.
+    rounding — a single bf16 pass lands ~6e-3 off in mel space where three
+    passes stay near 1e-4 (gated by the mel_nnls_rel validate row; 4.3e-4
+    on an H100); pass "default" to trade that for speed.
     """
     import jax
 

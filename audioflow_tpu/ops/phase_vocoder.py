@@ -1,16 +1,13 @@
 """Phase-vocoder time-stretch and pitch-shift (north-star config 4).
 
-TPU notes: the per-output-frame phase increments (expected advance + wrapped
+The per-output-frame phase increments (expected advance + wrapped
 deviation) are computed in parallel and combined with one ``cumsum``, so the
-XLA path is gather + elementwise + cumsum + ISTFT with static shapes (the
+path is gather + elementwise + cumsum + ISTFT with static shapes (the
 stretch ``rate`` is a trace-time constant). An equivalent trig-free *phasor*
 formulation exists — ``exp(i*increment) == s_hi*conj(s_lo)/(|s_hi||s_lo|)``
-with a cumulative complex product (see :func:`increment_phasors`) — but
-measured SLOWER under XLA on TPU v5e (47.6 vs 23.5 ms at batch 256: the extra
-complex intermediates cost more HBM passes than atan2/sincos cost VPU
-cycles; both paths are bandwidth-bound). The phasor form is what the fused
-Pallas kernel (:mod:`audioflow_tpu.ops.pallas.timestretch`) uses, where
-everything stays in VMEM and transcendental-free math wins.
+with a cumulative complex product (see :func:`increment_phasors`); under
+XLA its extra complex intermediates cost more memory passes than the
+atan2/sincos they save, so the angle form is the one shipped.
 """
 
 from __future__ import annotations
@@ -36,8 +33,8 @@ def increment_phasors(
     """Unit phasor of the per-step phase increment between two analysis
     frames: ``exp(i*(angle(s_hi)-angle(s_lo)))`` without any trig (the
     expected advance and the wrap both cancel inside exp). Zero-magnitude
-    frames contribute a unit phasor (the angle(0)==0 convention). Used by
-    the fused Pallas kernel; exposed for tests/oracles."""
+    frames contribute a unit phasor (the angle(0)==0 convention). Exposed
+    for tests/oracles."""
     denom = m_hi * m_lo
     ok = denom > 0
     return jnp.where(ok, s_hi * jnp.conj(s_lo) / jnp.where(ok, denom, 1.0), 1.0 + 0.0j)
@@ -79,62 +76,29 @@ def phase_vocoder(spec: jnp.ndarray, rate: float, hop: int, n_fft: int) -> jnp.n
     return mag * jnp.exp(1j * phase)
 
 
+_IMPLS = ("matmul", "fft")
+
+
 def time_stretch(
     x: jnp.ndarray,
     rate: float,
     n_fft: int = 1024,
     hop: int = 256,
     window: str = "hann",
-    impl: str = "auto",
+    impl: str = "matmul",
     precision: str | None = None,
 ) -> jnp.ndarray:
     """Stretch audio duration by 1/rate at constant pitch (ISTFT round-trip).
 
-    ``impl``:
-      * ``"auto"`` (default): the fused Pallas kernel on TPU when the config
-        qualifies (rational rate, hop | n_fft, 1D/2D input) — one VMEM-resident
-        kernel instead of five HBM-bound XLA stages (BENCHMARKS.md) — else
-        the ``"matmul"`` path;
-      * ``"pallas"``: force the fused kernel (raises if unsupported);
-      * ``"matmul"``: MXU DFT banks (sharding-clean);
-      * ``"fft"``: XLA's FFT.
+    ``impl`` picks the DFT of the round trip: ``"matmul"`` (default; DFT
+    banks as matrix products, sharding-clean) or ``"fft"`` (XLA's FFT).
     ``precision`` overrides the matmul precision of the DFT banks only
-    (None = framework default, see ops/_mm.py).
+    (None = the stft module default, see ops/_mm.py).
     """
     if rate <= 0:
         raise ValueError("rate must be positive")
-    if impl == "auto":
-        from .pallas.timestretch import supported
-
-        use_pallas = (
-            x.ndim <= 2
-            and jax.default_backend() == "tpu"
-            and supported(rate, n_fft, hop)
-        )
-        impl = "pallas" if use_pallas else "matmul"
-    if impl == "pallas":
-        from ._mm import get_default_matmul_precision
-        from .pallas.timestretch import time_stretch_pallas
-
-        # per-op default caps the framework-wide HIGHEST down to a split
-        # forward/inverse setting: forward DFT at HIGH (bf16x3 — analysis
-        # phase feeds the cumulative phasor product, so it keeps the 3-pass
-        # split), inverse iDFT at DEFAULT (bf16 — pure resynthesis, its
-        # rounding lands directly on output samples as an ~-54 dB noise
-        # floor, far below phase-vocoder artifact level). Measured on v5e at
-        # batch 256x10 s: 29.3 ms (high/high) -> 25.6 ms (high/default),
-        # rel 2.0e-3 vs the bf16x6 kernel — inside the 6e-3 validate budget
-        # (`pvoc_pallas_vs_xla_rel` gates exactly this combo on chip). An
-        # explicitly lowered global or per-call override wins and sets BOTH.
-        inv_precision = None
-        if precision is None:
-            g = get_default_matmul_precision()
-            precision = "high" if g == "highest" else g
-            inv_precision = "default" if precision == "high" else precision
-        return time_stretch_pallas(
-            x, rate, n_fft, hop, window,
-            precision=precision, inv_precision=inv_precision,
-        )
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown time_stretch impl {impl!r}; known: {', '.join(_IMPLS)}")
     spec = stft(x, n_fft=n_fft, hop=hop, window=window, impl=impl, precision=precision)
     out = phase_vocoder(spec, rate, hop, n_fft)
     length = int(round(x.shape[-1] / rate))

@@ -1,6 +1,6 @@
 """YIN fundamental-frequency estimation (de Cheveigné & Kawahara 2002).
 
-TPU formulation: the difference function d(tau) over all frames at once via
+Formulation: the difference function d(tau) over all frames at once via
 one batched autocorrelation (d(tau) = e0 + e(tau) - 2*acf(tau), the
 energies from a cumulative sum), cumulative-mean normalization as a cumsum
 along the lag axis, and the trough search as masked argmax/argmin with
@@ -10,12 +10,9 @@ fmin/fmax, trough threshold 0.1, parabolic interpolation) so results are
 oracle-checkable; the serial float64 oracle lives in the tests.
 
 The ACF itself has two implementations (``impl=``): ``"fft"`` (the rFFT
-correlation trick) and ``"matmul"`` — real cos|sin DFT banks on the MXU at
-the *minimal* no-wraparound transform length n = win + max_lag, the
-spectrogram lesson applied to correlation. On this TPU runtime XLA's FFT is
-the whole tracker's bottleneck (52 of 60 ms at the benchmark config;
-BENCHMARKS.md), and the matmul form is ~3x faster end-to-end with p99 f0
-agreement of 0.004 Hz, so ``"auto"`` picks matmul on TPU and FFT elsewhere.
+correlation trick) and ``"matmul"`` — real cos|sin DFT banks as matrix
+products at the *minimal* no-wraparound transform length n = win +
+max_lag. ``"auto"`` is :data:`ACF_IMPL_DEFAULT` on every platform.
 """
 
 from __future__ import annotations
@@ -31,17 +28,18 @@ import jax.numpy as jnp
 from ._mm import mm
 from .framing import frame
 
-ACF_PRECISION_DEFAULT = "high"  # bf16x3: 1e-5-scale acf error, 0.004 Hz p99 f0
+#: the ACF of ``impl="auto"``: on an H100 (400 W limit) YIN at its defaults
+#: over 64 x 10 s at 16 kHz took 2.92 ms with the rFFT correlation and
+#: 5.05 ms with the matmul banks (p99 f0 agreement 0.003 Hz)
+ACF_IMPL_DEFAULT = "fft"
+#: precision tier of the matmul banks (ops/_mm.py; ~1e-5 acf error)
+ACF_PRECISION_DEFAULT = "high"
 
 # Lag-axis scan unroll: the candidate scans carry [.., F, M] (and the
-# histogram scan [.., F, n_bins]) through HBM once per scan step; unrolling
-# fuses UNROLL steps into one XLA loop body so the carry round-trips once
-# per UNROLL lags instead of per lag. Results identical per step (XLA may
-# re-fuse across the unrolled chain: <= 1 ulp on voiced_prob). Measured
-# (scripts/chip_r4_pyin.py, with the multiplicative rank-weight carry):
-# pyin res-0.5/32-thr 129.7 -> 51.8 ms; librosa defaults only 87.1 -> 84.8
-# ms — there the banded Viterbi + [F, 602] histogram dominate, see
-# docs/ROADMAP.md.
+# histogram scan [.., F, n_bins]) through device memory once per scan step;
+# unrolling fuses UNROLL steps into one XLA loop body so the carry
+# round-trips once per UNROLL lags instead of per lag. Results identical per
+# step (XLA may re-fuse across the unrolled chain: <= 1 ulp on voiced_prob).
 _CAND_UNROLL = 8
 
 #: half-width of the matmul histogram's deviation window (see the histogram
@@ -89,7 +87,7 @@ def _dft_corr_parts(
     cos/sin matrices [n_rows, K] at transform length ``n`` and the
     Hermitian-weighted truncated-irfft cos/sin [K, t_max + 1] (weights
     already folded). float64 design, f32 ship (f32-representable to ~1e-8;
-    the dots run at the configured MXU precision). Both the cross-
+    the dots run at the configured precision tier). Both the cross-
     correlation packing (this module) and the autocorrelation packing
     (ops/rhythm.py) build from these, so the minimal-even-length /
     Nyquist-weight logic lives exactly once."""
@@ -140,7 +138,7 @@ def _acf_fft(fr: jnp.ndarray, w: int, t_max: int) -> jnp.ndarray:
 def _acf_matmul(
     fr: jnp.ndarray, w: int, t_max: int, precision: str | None
 ) -> jnp.ndarray:
-    """Same correlation as :func:`_acf_fft`, as three MXU dots."""
+    """Same correlation as :func:`_acf_fft`, as three matrix products."""
     fwd, inv, k_count = _acf_banks(w, t_max)
     p = precision or ACF_PRECISION_DEFAULT
     f_spec = mm(fr, jnp.asarray(fwd), p)  # [..., 2K] (Re | Im)
@@ -154,40 +152,21 @@ def _acf_matmul(
     return mm(prod, jnp.asarray(inv), p)
 
 
-def _resolve_viterbi_impl(impl: str, ndim: int, n_bins: int, kernel_len: int) -> bool:
-    """True -> run the fused Pallas Viterbi forward (ops/pallas/viterbi.py).
+_VITERBI_IMPLS = ("auto", "xla")
 
-    "auto" currently KEEPS the XLA scan everywhere: the fused kernel
-    decodes bit-identically but measured 575.6 ms vs the scan's 84.9 ms at
-    the librosa-defaults benchmark (2026-08-21, B=64 x 10 s — the
-    roll-per-tap band over [128, 768] blocks exceeds Mosaic's register
-    budget and spills; bench_records/chip_r5_pyin.jsonl). Kept available
-    as a forced mode ("pallas"; interpret off-TPU — the exactness test
-    path) and as the substrate for a future register-tiled rewrite; the
-    honest-dead-end record lives in docs/ROADMAP.md item 0.
-    "xla" keeps the scan.
-    """
-    if impl in ("xla", "auto"):
-        return False
-    if impl != "pallas":
-        raise ValueError(
-            f"unknown viterbi impl {impl!r}; known: auto, xla, pallas"
-        )
-    from .pallas.viterbi import supported as _vit_supported
 
-    ok = ndim in (2, 3) and _vit_supported(n_bins, kernel_len)
-    if not ok:
+def _check_viterbi_impl(impl: str) -> None:
+    """The banded Viterbi runs as one ``lax.scan``; "auto" and "xla" both
+    name it."""
+    if impl not in _VITERBI_IMPLS:
         raise ValueError(
-            "viterbi_impl='pallas' needs [F, L] or [B, F, L] frames and "
-            f"a supported band (got ndim={ndim}, n_bins={n_bins}, "
-            f"kernel_len={kernel_len})"
+            f"unknown viterbi impl {impl!r}; known: {', '.join(_VITERBI_IMPLS)}"
         )
-    return True
 
 
 def _resolve_acf_impl(impl: str) -> str:
     if impl == "auto":
-        return "matmul" if jax.default_backend() == "tpu" else "fft"
+        return ACF_IMPL_DEFAULT
     if impl not in ("fft", "matmul"):
         raise ValueError(f"unknown acf impl {impl!r}; known: auto, fft, matmul")
     return impl
@@ -219,10 +198,9 @@ def cmnd_frames(
     definition. The difference function d(tau) = sum_{j<W} (x_j - x_{j+tau})^2
     expands to e0 + e(tau) - 2*acf(tau); acf rides one batched correlation
     (``impl``: "auto"/"fft"/"matmul" — see the module docstring; ``precision``
-    caps the matmul form's MXU passes, default ``ACF_PRECISION_DEFAULT``).
+    is the matmul form's tier, default ``ACF_PRECISION_DEFAULT``).
     Truncating to ``max_lag`` (the pitch search never looks past sr/fmin)
-    shrinks the correlated frames to W + max_lag samples — measured 2x
-    end-to-end at the yin() defaults (BENCHMARKS.md).
+    shrinks the correlated frames to W + max_lag samples.
     """
     l = frames.shape[-1]
     w = win or l // 2
@@ -353,7 +331,7 @@ def yin_voicing(
 # ---------------------------------------------------------------------------
 # pYIN (Mauch & Dixon 2014): probabilistic YIN with HMM smoothing.
 #
-# TPU formulation: every stage is batched over frames with static shapes —
+# Formulation: every stage is batched over frames with static shapes —
 # the per-threshold candidate weighting is a lax.scan over the threshold
 # grid (each step one fused elementwise pass over [.., F, lags]), candidate
 # probabilities land in pitch bins through one batched scatter-add, and the
@@ -426,11 +404,9 @@ def pyin_frames(
     ``hop`` is the analysis hop in samples — it scales the per-frame pitch
     transition width; pass the hop the frames were cut with.
 
-    ``viterbi_impl``: "auto"/"xla" (the scan — measured FASTER than the
-    fused kernel on chip, see :func:`_resolve_viterbi_impl`) | "pallas"
-    (the fused forward pass ops/pallas/viterbi.py, forced; bit-identical
-    decode, interpret-mode off-TPU — the exactness test path).
+    ``viterbi_impl``: "auto" or "xla" (the banded max-plus scan).
     """
+    _check_viterbi_impl(viterbi_impl)
     if not 0.0 < switch_prob < 1.0:
         raise ValueError(f"switch_prob must be in (0, 1), got {switch_prob}")
     (obs_v, voiced_prob, trough, prob, f0_lag, bins, n_bins, nbps) = (
@@ -446,13 +422,11 @@ def pyin_frames(
 
     # --- banded two-track Viterbi ---
     # Forward pass records per-state backpointers (offset + track picks);
-    # the backtrace is width-1 take_along_axis per step. The delta-emitting
-    # variant (forward stores the max-plus messages, the backtrace recomputes
-    # the ONE visited state's argmax from a 139-wide window gather) was
-    # measured and REJECTED: TPU lowers the [B, 2*half+1] window gather
-    # serially and the whole tracker went 87 -> 173 ms
-    # (scripts/chip_r4_sweep.py, /tmp/chip_r4_sweep.jsonl pyin_full first
-    # entry). Keep the wide work in the forward band, keep gathers width-1.
+    # the backtrace reads one state per step. The delta-emitting variant
+    # (forward stores the max-plus messages, the backtrace recomputes the
+    # ONE visited state's argmax from a 139-wide window gather) trades the
+    # backpointer memory for a [B, 2*half+1] gather per step; the wide work
+    # stays in the forward band here and the backtrace reads width-1.
     from .sequence import max_plus_band_argmax
 
     half, log_kernel, log_stay, log_switch = _pyin_hmm_consts(
@@ -463,55 +437,29 @@ def pyin_frames(
     ou = jnp.moveaxis(log_obs_u, -2, 0)
     log_init = jnp.asarray(-np.log(2 * n_bins), dtype)
 
-    if _resolve_viterbi_impl(viterbi_impl, log_obs_v.ndim, n_bins, 2 * half + 1):
-        # fused Pallas forward pass: identical band/merge/tie semantics
-        # (ops/pallas/viterbi.py), backpointers int8 — the backtrace below
-        # is shared verbatim with the XLA path
-        from .pallas.viterbi import pyin_viterbi_forward
+    dv0 = log_init + ov[0]
+    du0 = log_init + ou[0]
 
-        unbatched = ov.ndim == 2
-        ov3 = ov[:, None] if unbatched else ov
-        ou3 = ou[:, None] if unbatched else ou
-        tri = 1.0 - np.abs(np.arange(-half, half + 1, dtype=np.float64)) / (half + 1.0)
-        dv, du, off8, pick8 = pyin_viterbi_forward(
-            ov3, ou3, np.log(tri / tri.sum()),
-            -np.log(2 * n_bins), float(np.log1p(-switch_prob)),
-            float(np.log(switch_prob)),
-            interpret=jax.default_backend() != "tpu",
-        )
-        if unbatched:
-            dv, du, off8, pick8 = dv[0], du[0], off8[:, :, 0], pick8[:, :, 0]
-        # kernel offsets come back CENTERED (int8-safe); restore 0..2*half
-        bps = (
-            off8[1:, 0].astype(jnp.int32) + half, pick8[1:, 0].astype(bool),
-            off8[1:, 1].astype(jnp.int32) + half, pick8[1:, 1].astype(bool),
-        )
-    else:
-        dv0 = log_init + ov[0]
-        du0 = log_init + ou[0]
+    def vit_step(carry, obs_t):
+        dv, du = carry
+        lv, lu = obs_t
+        bv, av = max_plus_band_argmax(dv, log_kernel)
+        bu, au = max_plus_band_argmax(du, log_kernel)
+        sv, su = bv + log_stay, bu + log_switch
+        pick_v = su > sv  # source is the unvoiced track
+        new_v = lv + jnp.where(pick_v, su, sv)
+        off_v = jnp.where(pick_v, au, av)
+        sv2, su2 = bv + log_switch, bu + log_stay
+        pick_u = su2 > sv2
+        new_u = lu + jnp.where(pick_u, su2, sv2)
+        off_u = jnp.where(pick_u, au, av)
+        return (new_v, new_u), (off_v, pick_v, off_u, pick_u)
 
-        def vit_step(carry, obs_t):
-            dv, du = carry
-            lv, lu = obs_t
-            bv, av = max_plus_band_argmax(dv, log_kernel)
-            bu, au = max_plus_band_argmax(du, log_kernel)
-            sv, su = bv + log_stay, bu + log_switch
-            pick_v = su > sv  # source is the unvoiced track
-            new_v = lv + jnp.where(pick_v, su, sv)
-            off_v = jnp.where(pick_v, au, av)
-            sv2, su2 = bv + log_switch, bu + log_stay
-            pick_u = su2 > sv2
-            new_u = lu + jnp.where(pick_u, su2, sv2)
-            off_u = jnp.where(pick_u, au, av)
-            return (new_v, new_u), (off_v, pick_v, off_u, pick_u)
-
-        # unroll=4: the message carries round-trip HBM once per 4 frames
-        # instead of every frame (defaults 79.0 -> ~68.5 ms on chip;
-        # unroll=2 captures most of it, 8 regresses on register pressure —
-        # bench_records/chip_r5_pyin.jsonl)
-        (dv, du), bps = jax.lax.scan(
-            vit_step, (dv0, du0), (ov[1:], ou[1:]), unroll=4
-        )
+    # unroll=4: the message carries round-trip device memory once per 4
+    # frames instead of every frame
+    (dv, du), bps = jax.lax.scan(
+        vit_step, (dv0, du0), (ov[1:], ou[1:]), unroll=4
+    )
     both = jnp.concatenate([dv, du], axis=-1)
     last = jnp.argmax(both, axis=-1).astype(jnp.int32)
 
@@ -521,11 +469,8 @@ def pyin_frames(
         off_v, pick_v, off_u, pick_u = bp
         unvoiced = state >= n_bins
         b = state - n_bins * unvoiced.astype(jnp.int32)
-        # gather-free width-1 reads: TPU lowers the take_along_axis form of
-        # this walk poorly (~15 ms of the 85 ms defaults tracker — 24 us
-        # per backward step for four [B, N] single-element gathers); the
-        # one-hot masked REDUCE is dense vector work, measured ~10x cheaper
-        # (bench_records/chip_r5_pyin.jsonl)
+        # gather-free width-1 reads: a one-hot masked reduce over the N
+        # bins instead of four [B, N] single-element gathers per step
         hot = ngrid_b == b[..., None]  # [.., N]
         offs = jnp.where(unvoiced[..., None], off_u, off_v).astype(jnp.int32)
         picks = jnp.where(unvoiced[..., None], pick_u, pick_v)
@@ -635,12 +580,10 @@ def _pyin_observations(
 
     # --- per-threshold candidate weighting, as LAG-axis scans ---
     # The direct form scans the threshold grid: n_thresholds passes over
-    # [.., F, lags], each with a lag cumsum — measured 114 ms of the 267 ms
-    # total at the librosa-defaults benchmark config (scripts/chip_r3_pyin.py).
-    # Scanning the LAG axis instead with a per-threshold count carry
-    # [.., F, M] does the same math in two passes over the candidate tensor
-    # (counts, then rank-weighted emission): whole-op 254.7 -> 87.1 ms on
-    # chip, max |prob delta| 2.4e-7 (same gate: pyin_220_rel).
+    # [.., F, lags], each with a lag cumsum. Scanning the LAG axis instead
+    # with a per-threshold count carry [.., F, M] does the same math in two
+    # passes over the candidate tensor (counts, then rank-weighted
+    # emission), max |prob delta| 2.4e-7 (same gate: pyin_220_rel).
     lam = float(boltzmann_parameter)
     m_count = int(n_thresholds)
     masses = jnp.asarray(
@@ -652,13 +595,12 @@ def _pyin_observations(
     geo = dtype.type(1.0) - jnp.exp(jnp.asarray(-lam, dtype))
     # trough l qualifies at threshold m iff dn[l] < thresholds[m] — compare
     # against the actual grid everywhere (a floor(dn*M)-index formulation
-    # needs gather-based boundary corrections, and TPU gathers at this shape
-    # measured 160+ ms; scripts/chip_r3_pyin3.py).
+    # needs gather-based boundary corrections at this shape).
     # The rank normalizer needs the FINAL per-threshold counts before any
     # weight is computed, so pass 1 is a count-only lag scan: the one-shot
     # broadcast compare-reduce would materialize [.., F, L, M] (~1e9
-    # elements / ~150 ms of HBM traffic at the benchmark config), while the
-    # scan's [.., F, M] count carry stays VMEM-resident per step.
+    # elements at the benchmark config), while the scan carries only the
+    # [.., F, M] counts from step to step.
     tr_t = jnp.moveaxis(trough, -1, 0)  # [L, .., F]
     dn_t = jnp.moveaxis(dn, -1, 0)
 
@@ -709,18 +651,16 @@ def _pyin_observations(
         0,
         n_bins - 1,
     )
-    # histogram candidates into bins. History: the per-row scatter-add
-    # (.at[rows, bins].add) costs 112.7 ms at the benchmark config — TPU
-    # scatter is serial-emulated; the r3 lag-axis one-hot scan got it to
-    # 16 ms but is VPU-compute-bound (L x n_bins compares; unroll>8
-    # measured WORSE — register pressure). r5 splits by bin deviation:
+    # histogram candidates into bins without a per-row scatter-add
+    # (.at[rows, bins].add) or a full lag-axis one-hot scan (L x n_bins
+    # compares). The bins split by deviation:
     # a candidate's bin is the STATIC bin of its integer lag plus a small
     # data-dependent offset d (the parabolic delta moves frequency by at
     # most +/-0.5 lag), and for all but the shortest lags |d| <= 2 — so
-    # that lag range reduces to 5 masked MXU matmuls against a fixed
+    # that lag range reduces to 5 masked matmuls against a fixed
     # one-hot lag->bin bank (sum reordered: f32 reassociation ~1e-7, far
     # inside the 5e-3 oracle budget), and only the short-lag head keeps
-    # the compare scan. Measured on chip in bench_records/chip_r5_pyin.jsonl.
+    # the compare scan.
     ngrid = jnp.arange(n_bins, dtype=jnp.int32)
     l_grid = dn.shape[-1]
     l_star, base_np, s0ext = _pyin_bin_split(
@@ -973,8 +913,7 @@ def online_pyin_step(
 
         # fixed-lag decode: argmax now, walk `lag` prev maps back. The
         # walk's width-1 reads are one-hot masked REDUCES, not
-        # take_along_axis — TPU lowers the gather form poorly (same
-        # finding as the offline backtrace; bench_records/chip_r5_pyin.jsonl)
+        # take_along_axis gathers (as in the offline backtrace)
         s = jnp.argmax(jnp.concatenate([dv, du], axis=-1), axis=-1).astype(
             jnp.int32
         )

@@ -1,7 +1,7 @@
 """PCM quantization ops.
 
 Bit-exact device-side equivalent of the reference's wire packing
-(/root/reference/src-tauri/src/modules/network/websocket.rs:246-251):
+(reference: src-tauri/src/modules/network/websocket.rs:246-251):
 ``(x.clamp(-1.0, 1.0) * 32767.0) as i16`` — note Rust's ``as i16`` truncates
 toward zero, so this uses trunc, not round. The little-endian byte/base64
 framing lives host-side in :mod:`audioflow_tpu.sinks.wire`.

@@ -1,7 +1,7 @@
-"""Sample-rate conversion as one MXU matmul.
+"""Sample-rate conversion as one matmul.
 
-TPU-first design
-----------------
+Design
+------
 A rational resampler (up=L, down=M) is a polyphase filter bank: output ``n``
 uses phase ``p = (n*M) % L`` of the bank and an input window anchored at
 ``(n*M) // L``. Phases repeat with period L, so a block of ``G`` consecutive
@@ -12,10 +12,10 @@ written as
 
 where ``W`` is a banded matrix holding the phase weights. The whole resample
 is then ``frame(x, ipb+K, ipb) @ W`` — a single dense matmul that XLA tiles
-onto the MXU, instead of the reference's per-128-sample serial rubato calls
-(/root/reference/src-tauri/src/modules/audio/resampler.rs:43-49,132-147).
-The extra multiply-by-zeros of the band is ~10x flops, which the MXU absorbs;
-the op stays HBM-bandwidth-bound. Batch is vmapped/leading-dim'd for free.
+onto the device's matrix units, instead of the reference's per-128-sample
+serial rubato calls (src-tauri/src/modules/audio/resampler.rs:43-49,132-147).
+The extra multiply-by-zeros of the band is ~10x flops, which the matrix
+units absorb; the op stays bound by memory bandwidth. Batch is vmapped/leading-dim'd for free.
 
 Two filter banks are provided:
 
@@ -180,15 +180,13 @@ def make_plan(
 
 
 def _resolve_precision(precision: str | None) -> str:
-    """Effective MXU precision for the band matmul.
+    """Effective precision tier for the band matmul.
 
-    Default = the framework-wide setting (HIGHEST). A per-op HIGH cap was
-    measured and REJECTED: the op is locality-bound, not flop-bound —
-    on-chip batch-256 44.1k->16k runs 18.2 ms at HIGHEST vs 17.5 ms at HIGH
-    (4%), while the on-chip validate error vs the float64 oracle grows
-    4.0e-7 -> 6.6e-5 (164x of margin inside the 1e-4 budget). Callers who
-    want the speed mode pass ``precision="high"`` explicitly (error budgets
-    in docs/DESIGN.md §6b).
+    Default = the framework-wide setting ("highest"): the op is bound by
+    memory, not flops, so a lower tier buys little, while the validate
+    error vs the float64 oracle would grow from ~1e-6 toward the 1e-4
+    budget. Callers who want the speed mode pass ``precision="high"``
+    explicitly (error budgets in docs/DESIGN.md §6b).
     """
     if precision is not None:
         return precision
@@ -243,12 +241,9 @@ def resample_apply(
     n_blocks = cdiv(n_out, plan.block_out)
     dt = x.dtype if x.dtype != jnp.float64 else jnp.float32
     # Long signals: run the SAME band matmul block-by-block inside lax.scan.
-    # The one-shot matmul over [.., n_blocks, ipb] windows is locality-bound
-    # on TPU, not flop-bound (measured batch-256 44.1k->16k: 18.2 ms at
-    # HIGHEST vs 12.7 ms even at bf16 1-pass — a 6x precision swing moves it
-    # 1.4x). Chunked-scan processing keeps each step's shifted-window
-    # relayout and matmul cache-resident, the same effect that makes the
-    # streaming graph mode beat the offline program (BENCHMARKS.md).
+    # The one-shot matmul over [.., n_blocks, ipb] windows is bound by
+    # locality, not flops; chunked-scan processing keeps each step's
+    # shifted-window relayout and matmul working set small.
     blocks_per_step = max(1, 8192 // plan.ipb)
     if n_blocks > 2 * blocks_per_step:
         y = _banded_matmul_scan(
@@ -304,7 +299,7 @@ class StreamResamplePlan:
     with the first ``-n0`` samples dropped equals the offline resampler
     exactly (verified in tests). Carry = last ``hist`` input samples.
 
-    This is the TPU analog of the reference's BatchResampler accumulate/chunk
+    This is the on-device analog of the reference's BatchResampler accumulate/chunk
     semantics (resampler.rs:114-167), with fixed shapes for jit.
     """
 

@@ -6,16 +6,15 @@ descriptor set (ops/features.py) with the standard onset/tempo/beat stack
 (Ellis 2007 dynamic-programming beat tracker; librosa-style conventions so
 the outputs are comparable to the common tooling).
 
-TPU-first formulations:
+Formulations:
 
 * onset strength is a rectified log-spectral difference — one fused
-  elementwise pass over a mel spectrogram the MXU already produced;
+  elementwise pass over a mel spectrogram;
 * peak picking is shifted-slice sliding max/mean (static windows, fused)
   plus one O(T) ``lax.scan`` for the sequential "wait" constraint, batched
   over lanes;
-* the tempogram is framed autocorrelation — matmul cos|sin banks on the MXU
-  on TPU, rFFT elsewhere (``autocorrelate`` impl ladder; the ops/pitch.py
-  ACF lesson);
+* the tempogram is framed autocorrelation (``autocorrelate``'s impl
+  ladder: shifted sums for few lags, the rFFT correlation otherwise);
 * the beat tracker is the Ellis DP as a ``lax.scan`` over frames whose
   carry is a fixed window of cumulative scores (static window = the slowest
   trackable period), then a reverse scan for the backtrace — beats come out
@@ -118,18 +117,17 @@ def autocorrelate(
     """Linear (non-circular) autocorrelation along the last axis, truncated
     to ``max_lag + 1`` lags.
 
-    Three implementations, auto-selected by problem shape:
+    Three implementations; ``"auto"`` picks by problem shape:
 
     * ``"direct"`` — max_lag+1 shifted elementwise mul-sums, O(n * lags).
       The right form when few lags are needed (LPC orders): no transform,
       no bank, shards trivially. Auto when ``max_lag <= 64``.
-    * ``"matmul"`` — real cos|sin DFT banks on the MXU at the minimal
-      no-wraparound length (the ops/pitch.py ACF lesson — XLA's TPU FFT is
-      dispatch-dominant at tempogram sizes, and the matmul form also shards
-      without the GSPMD all-gather the FFT op forces). O(n^2) in the
-      transform length, so auto only on TPU for inputs up to 4096 samples.
-    * ``"fft"`` — the zero-padded rFFT power-spectrum route; the long-input
-      fallback everywhere.
+    * ``"matmul"`` — real cos|sin DFT banks at the minimal no-wraparound
+      length, O(n^2) in the transform length; it shards without the GSPMD
+      all-gather the FFT op forces. On an H100 (400 W limit) it took 13.8
+      ms against the FFT's 3.64 ms over [64, 384, 4096] frames at 384 lags.
+    * ``"fft"`` — the zero-padded rFFT power-spectrum route; auto above 64
+      lags.
 
     ``precision`` follows ops/pitch.py::ACF_PRECISION_DEFAULT.
     """
@@ -140,12 +138,7 @@ def autocorrelate(
     if max_lag is None:
         max_lag = n - 1
     if impl == "auto":
-        if max_lag <= 64:
-            impl = "direct"
-        elif n <= 4096:
-            impl = "matmul" if jax.default_backend() == "tpu" else "fft"
-        else:
-            impl = "fft"
+        impl = "direct" if max_lag <= 64 else "fft"
     if impl == "direct":
         out = [(x * x).sum(axis=-1, keepdims=True)]
         for lag in range(1, max_lag + 1):

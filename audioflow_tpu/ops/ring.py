@@ -1,11 +1,11 @@
 """Device-resident ring buffer.
 
 The reference's ring buffer (capture.rs:83-161) is the thread-crossing between
-the OS audio callback and the consumer. The TPU analog keeps the ring as HBM
-state inside the streaming session (SURVEY §2.2 "TPU equivalent"): a fixed
+the OS audio callback and the consumer. The on-device analog keeps the ring
+as device-memory state inside the streaming session (SURVEY §2.2): a fixed
 ``[..., capacity]`` buffer plus read/write cursors, updated functionally with
 traced-shift rolls + selects so a jitted producer/consumer step lowers to
-dynamic slices, never a general scatter (which serializes on TPU). Leading dims ride along (one ring per batch
+dynamic slices, never a general scatter. Leading dims ride along (one ring per batch
 lane, shared cursors — the session always pushes full-width).
 
 This is the accumulator behind ``StreamSession.push``: irregular host pushes
@@ -61,16 +61,14 @@ def ring_write(ring: Ring, data: jnp.ndarray, n=None) -> tuple[Ring, jnp.ndarray
     ``n`` may be a traced scalar smaller than the data width: callers pad
     ``data`` to a small set of bucket shapes and pass the true length, so
     irregular push sizes reuse a handful of compiled programs instead of
-    recompiling per shape (jit caches by shape; on TPU each extra shape is a
-    fresh ~seconds-long compile)."""
+    recompiling per shape (jit caches by shape; each extra shape is a fresh
+    compile)."""
     cap = ring.buf.shape[-1]
     if n is None:
         n = data.shape[-1]
     n_write = jnp.minimum(n, ring_free(ring))
     width = data.shape[-1]  # static; n may be traced
-    # Vectorized circular write WITHOUT a scatter: a general scatter of
-    # thousands of indices lowers to a serialized loop on TPU — measured
-    # ~300 ms per 16k-sample push at batch 64 before this form. Instead,
+    # Vectorized circular write WITHOUT a scatter of thousands of indices:
     # rotate the (zero-padded) data so element j of the buffer pairs with
     # data[(j - write_pos) mod cap] (jnp.roll with a traced shift lowers to
     # two cheap dynamic slices), then select the written window. The window
@@ -82,9 +80,8 @@ def ring_write(ring: Ring, data: jnp.ndarray, n=None) -> tuple[Ring, jnp.ndarray
     else:
         data = data[..., :cap]
     src = jnp.roll(data, ring.write_pos, axis=-1)
-    # window membership WITHOUT an elementwise modulo: `% cap` over the
-    # buffer serialized on TPU (~6.7 s per write on a 64x65537 ring, vs ms
-    # for the rolls). rel in (-cap, cap); the wrapped part of the window is
+    # window membership WITHOUT an elementwise modulo over the buffer:
+    # rel in (-cap, cap); the wrapped part of the window is
     # rel < 0 with rel + cap < n_write.
     rel = jnp.arange(cap, dtype=jnp.int32) - ring.write_pos
     take = jnp.where(rel >= 0, rel < n_write, rel + cap < n_write)
@@ -127,10 +124,9 @@ class Staging(NamedTuple):
     """Device-resident linear accumulator: ``buf [..., size]`` + fill count.
 
     The wrap-around Ring above is the capture.rs parity component; for the
-    hot session path its circular addressing is the wrong primitive on this
-    TPU runtime — measured per 16k-sample batch-64 push: ~300 ms as an
-    index scatter, 25.7 s (!) with an elementwise ``% cap``, 184 ms as
-    traced-shift rolls. A linear buffer needs ONE dynamic_update_slice per
+    hot session path its circular addressing (a scatter, a modulo or
+    full-buffer rolls per write) is the wrong primitive. A linear buffer
+    needs ONE dynamic_update_slice per
     push (write width = the padded piece, not the capacity) and one
     static-slice + shift per drained chunk, with no wrap arithmetic at all
     — the session never wraps because it drains every full chunk eagerly

@@ -5,7 +5,7 @@ music/long-form audio (where are the sections?) on the same substrate as
 everything else:
 
 * the recurrence (self-similarity) matrix is one Gram matmul of normalized
-  feature frames — exactly the [T, D] @ [D, T] shape the MXU wants — with
+  feature frames — one [T, D] @ [D, T] matmul — with
   kNN sparsification done densely (a per-row threshold against the k-th
   sorted value; no data-dependent shapes);
 * Foote novelty runs the box-checkerboard kernel EXACTLY in O(T) gathers via

@@ -6,7 +6,7 @@ layer that probabilistic trackers need — the pYIN pitch tracker
 (ops/pitch.py) rides the banded max-plus helper, and dense Viterbi / DTW are
 exposed for general feature-sequence work (alignment, segmentation).
 
-TPU-first formulations:
+Formulations:
 
 * Viterbi is a ``lax.scan`` over time whose body is one max-plus contraction
   ``delta'[j] = obs[j] + max_i (delta[i] + logA[i, j])``. For dense

@@ -1,10 +1,10 @@
-"""STFT / ISTFT on TPU via XLA's rFFT.
+"""STFT / ISTFT via XLA's rFFT or windowed DFT banks as matrix products.
 
-Design: frame (static slices) -> window multiply (VPU, fused) -> ``jnp.fft.rfft``
-(XLA TPU FFT). Magnitude/power stay fused into the consumer. ISTFT is irfft ->
+Design: frame (static slices) -> window multiply (fused) -> ``jnp.fft.rfft``.
+Magnitude/power stay fused into the consumer. ISTFT is irfft ->
 synthesis window -> overlap-add -> COLA window-square normalization.
 
-This is the TPU-native replacement for what the reference never had on-device:
+This is the on-device counterpart of what the reference never had:
 its DSP stops at resample+VAD; the STFT/mel stages come from the north star
 (BASELINE.json config 1). Framing semantics follow the widely used
 center/reflect convention so results are oracle-checkable against
@@ -39,15 +39,15 @@ def stft(
 
     Args:
       x: real signal ``[..., T]``.
-      impl: "fft" (XLA FFT) or "matmul" (two MXU dots against windowed
-        cos/sin banks — faster on TPU at moderate n_fft and, unlike the FFT
-        op, partitions cleanly under batch sharding).
+      impl: "fft" (XLA FFT) or "matmul" (two dots against windowed
+        cos/sin banks — unlike the FFT op, they partition cleanly under
+        batch sharding).
       precision: matmul precision override for impl="matmul" (None = the
         framework default in ops/_mm.py).
     Returns:
       complex64 spectrogram ``[..., n_frames, n_fft // 2 + 1]``
       (time-major: frame axis before frequency axis, the natural layout for
-      downstream [frames, freqs] @ [freqs, mels] MXU matmuls).
+      downstream [frames, freqs] @ [freqs, mels] matmuls).
     """
     win_length = win_length or n_fft
     if win_length > n_fft:
@@ -115,13 +115,11 @@ from ..utils.cache import BoundedCache
 # windowed-DFT bank variants, ~n_fft*(n_fft//2+1)*4 B each (8 MB at 2048)
 _BANK_CACHE = BoundedCache(maxsize=64)
 
-# Per-op precision cap for the forward DFT banks (the DESIGN.md §6b pattern,
-# same as the Pallas time-stretch DFTs): the spectrogram is MXU-compute-bound
-# — measured on chip at batch 512 / n_fft 1024: HIGHEST 132.9k x realtime,
-# HIGH 208.8k x (1.57x), while the f64-oracle relative error moves
-# 1.7e-7 -> 1.2e-5, still 8x inside the 1e-4 budget (audioflow validate
-# gates this on chip). Resample/mel stay HIGHEST (locality-bound; speed
-# doesn't pay there). Pass precision="highest" to override per call.
+# Per-op precision tier of the DFT banks (ops/_mm.py; DESIGN.md §6b): the
+# spectrogram is compute-bound, and "high" keeps the float64-oracle error
+# inside the 1e-4 budget (the spectrogram_matmul validate row: 4.2e-6 on an
+# H100). Resample/mel stay at the framework default. Pass
+# precision="highest" to override per call.
 DFT_PRECISION_DEFAULT = "high"
 
 
@@ -212,9 +210,9 @@ def _rdft_folded(frames, n_fft, window, win_length, precision, dtype=jnp.float32
 def _combined_banks(n_fft: int, window: str, win_length: int | None):
     """Concatenated cos|sin windowed rDFT bank, shape [n_fft, n_fft] exactly.
 
-    The plain form runs two [.., n_fft] @ [n_fft, n_fft//2+1] dots; the MXU
-    pads each 513-column output up to the next 128-lane multiple (640), so
-    the two dots execute 2x640 effective columns. The sin bank's k=0 and
+    The plain form runs two [.., n_fft] @ [n_fft, n_fft//2+1] dots; a
+    matrix unit that tiles columns in 128s pads each 513-column output to
+    640, so the two dots execute 2x640 effective columns. The sin bank's k=0 and
     k=n_fft/2 columns are identically zero, so cos (513 cols) | sin (511
     cols, k=1..511) concatenate to exactly n_fft columns: ONE dot with zero
     pad waste and half the dispatches — 1.25x fewer effective MACs for the
@@ -412,10 +410,9 @@ def spectrogram(
 ) -> jnp.ndarray:
     """Power (or magnitude) spectrogram ``[..., frames, n_fft//2+1]``.
 
-    ``impl="matmul"`` evaluates the windowed real DFT as two MXU matmuls
-    against precomputed cos/sin banks — measured ~1.5x faster than XLA's FFT
-    on TPU v5e at n_fft=1024 with ~1e-6 relative error (the MXU is simply
-    the fastest unit on the chip, even at O(N^2) vs O(N log N)).
+    ``impl="matmul"`` evaluates the windowed real DFT as two matmuls
+    against precomputed cos/sin banks (O(N^2) on the matrix units against
+    the FFT's O(N log N), and shardable without collectives).
     ``impl="fft"`` routes through :func:`stft`.
     """
     if impl == "fft":
@@ -439,11 +436,10 @@ def spectrogram(
     if impl == "fourstep":
         out = _rdft_fourstep(frames, n_fft, window, win_length, prec)
     elif impl == "folded" or (impl == "matmul" and prec == "highest"):
-        # at "highest" (bf16x6) the DFT is MXU-compute-bound and the folded
-        # banks' 2x MAC cut wins (18.5 vs 20.2 ms at batch 256x10 s, rel
-        # 3.0e-7); at "high"/"default" the op is relayout-bound and the
-        # fold's extra reverse+add traffic LOSES (14.5 vs 13.3 ms), so the
-        # plain banks stay the default there. BENCHMARKS.md "Folded DFT".
+        # at "highest" the DFT is the most compute-bound and the folded
+        # banks halve its MACs; at "high"/"default" the fold's extra
+        # reverse+add traffic is not repaid, so the plain banks stay the
+        # default there
         out = _rdft_folded(frames, n_fft, window, win_length, prec, dtype)
     if (
         out is None
@@ -453,11 +449,9 @@ def spectrogram(
         # "onedot" (and "radix2"'s fallback when its divisibility
         # preconditions fail): one combined-bank dot, zero pad waste
         # (see _combined_banks). Auto-selected for power=False under
-        # impl="matmul": measured 11.04 vs 12.51 ms standalone at batch
-        # 256x10 s (+13%, bit-identical, 6.7x faster compile). power=True
+        # impl="matmul" (bit-identical, faster to compile). power=True
         # keeps the two-dot form: when a mel matmul consumes the output,
-        # the onedot 513-boundary pad/slice breaks XLA's power->mel fusion
-        # (13.17 vs 11.81 ms measured) — BENCHMARKS.md "Combined-bank DFT".
+        # the onedot 513-boundary pad/slice breaks XLA's power->mel fusion.
         if power:
             # square in the packed [.., n_fft] layout first: the mis-aligned
             # 513-boundary slice then touches squared (output) data only
@@ -530,7 +524,7 @@ def istft(
 
     ``length`` trims/defines the output sample count; defaults to
     ``n_frames * hop`` for center=True. ``impl="matmul"`` evaluates the
-    inverse real DFT as two MXU dots (see :func:`stft`).
+    inverse real DFT as two dots (see :func:`stft`).
     """
     win_length = win_length or n_fft
     w = get_window(window, win_length, periodic=True)

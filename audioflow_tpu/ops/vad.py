@@ -1,7 +1,7 @@
 """Energy-based voice-activity detection as a `lax.scan`.
 
-Formula-exact TPU port of the reference's 3-state VAD
-(/root/reference/src-tauri/src/modules/audio/vad.rs:56-205), preserving its
+Formula-exact port of the reference's 3-state VAD
+(reference: src-tauri/src/modules/audio/vad.rs:56-205), preserving its
 quirks deliberately (SURVEY §7.4):
 
 * "RMS" energy is mean-of-squares with NO sqrt (vad.rs:157-168);

@@ -1,4 +1,4 @@
-"""Multi-chip scaling: mesh construction, batch sharding over ICI, multi-host
+"""Multi-chip scaling: mesh construction, batch sharding over the device mesh, multi-host
 init, and per-lane fault masking.
 
 Design (SURVEY §2.6): the reference has *no* distributed compute — parallelism
@@ -115,7 +115,7 @@ def compile_sharded(
     donate: bool = False,
     shard: str = "batch",
 ):
-    """Jit a Graph's chain sharded over ICI.
+    """Jit a Graph's chain sharded over a device mesh.
 
     ``shard="batch"`` (default): input batch axis sharded — the
     embarrassingly-parallel per-file mode. Output shardings are left to XLA

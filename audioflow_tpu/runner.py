@@ -1,7 +1,7 @@
 """Batch runner: the production driving loop over many files.
 
 Pipelines host decode (BatchLoader's background thread), host->HBM transfer,
-and graph execution so the TPU never waits on ingest (SURVEY §7.3 #5's
+and graph execution so the device never waits on ingest (SURVEY §7.3 #5's
 double-buffering obligation): while batch k computes on device, batch k+1 is
 being decoded on host CPU threads, and JAX's async dispatch overlaps the
 device_put of k+1 with the compute of k.
@@ -20,7 +20,6 @@ from .errors import AudioError, ErrorCode
 from .graph import Graph
 from .io import BatchLoader
 from .obs import RunMetrics, Timer, get_logger
-from .obs.metrics import _sync_scalar
 from .sinks import EventDispatcher, Sink
 
 _log = get_logger("runner")

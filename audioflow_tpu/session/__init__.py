@@ -1,16 +1,16 @@
 """Streaming session driver: open -> push -> poll -> flush/close.
 
-The TPU re-design of the reference's session layer
+The on-device re-design of the reference's session layer
 (network/scribe_client.rs:98-405): `ScribeClient` opens a socket, pushes
 PCM chunks, and polls typed transcript events with partial/committed
-semantics. Here the "service" is the jitted streaming graph on the chip:
+semantics. Here the "service" is the jitted streaming graph on the device:
 
 * ``push(samples)`` lands irregular host pushes in a **device-resident
   staging accumulator** (:class:`audioflow_tpu.ops.ring.Staging` — the
-  measured-fast linear form of the reference's capture ring,
-  capture.rs:83-161; the wrap-around :class:`~audioflow_tpu.ops.ring.Ring`
-  is the parity component, and its circular addressing benchmarked 40-100x
-  slower on this TPU runtime, see ops/ring.py) and processes every full
+  linear form of the reference's capture ring, capture.rs:83-161; the
+  wrap-around :class:`~audioflow_tpu.ops.ring.Ring` is the parity
+  component, whose circular addressing costs more per write, see
+  ops/ring.py) and processes every full
   chunk — the accumulate-and-chunk semantics of BatchResampler::process
   (resampler.rs:132-147). The chunk count is tracked host-side, so the whole
   push path is asynchronous dispatch: no readback, no host concatenation;
@@ -174,10 +174,9 @@ class StreamSession:
         self._ring = None
         # multi-chunk drain: when >= 2 chunks sit in staging, they drain
         # through ONE jitted lax.scan multi-step (bucketed to bounded shapes)
-        # — this runtime charges a large fixed cost per eager dispatch chain,
-        # so batching k chunks into one program amortizes it ~k-fold
-        # (BENCHMARKS.md live-session caveat). Buckets are capped by what the
-        # staging buffer can hold.
+        # — batching k chunks into one program amortizes the fixed cost of a
+        # dispatch chain ~k-fold. Buckets are capped by what the staging
+        # buffer can hold.
         self._multi: dict[int, Any] = {}
         self._drain_buckets = tuple(
             b for b in (8, 4, 2) if b * self.chunk_in <= self.ring_capacity
@@ -213,8 +212,7 @@ class StreamSession:
             # Covers the WHOLE first-push dispatch chain — step + the
             # staging write at the canonical chunk-cadence bucket shape +
             # the chunk take — not just the graph step (a first push that
-            # still compiled the ring programs measured 1.8 s vs 75 ms
-            # steady on chip).
+            # still compiled the ring programs would stall on the compiles).
             z = jnp.zeros((*self.lead_shape, self.chunk_in), self.dtype)
             self._step(self._carry, z)
             headroom = self.ring_capacity - self.chunk_in
@@ -256,9 +254,9 @@ class StreamSession:
         stepped — all asynchronous dispatch (the chunk count is tracked
         host-side, so nothing reads back from the device here). Irregular
         push sizes are split/padded HOST-side to power-of-two bucket shapes
-        before the device write: jit (and eager TPU dispatch) compiles per
+        before the device write: jit (and eager dispatch) compiles per
         shape, so without bucketing a ragged push stream recompiles the
-        write path on every new length — seconds per shape on TPU.
+        write path on every new length.
         """
         if self.state is not SessionState.OPEN:
             raise SessionError(
@@ -273,8 +271,7 @@ class StreamSession:
         # chunk-cadence fast path: with nothing pending, staging write
         # followed by an immediate take of the same samples is an identity —
         # step the push directly. One device dispatch instead of three
-        # (write/take/step); at the runtime's ~2 ms fixed charge per
-        # dispatch segment that is the live path's latency floor. A push of
+        # (write/take/step), which sets the live path's latency floor. A push of
         # exactly one drain bucket takes the same shortcut through the
         # multi-chunk scan program.
         n = arr.shape[-1]

@@ -2,7 +2,7 @@
 
 The reference's effectors are GUI injectors (keyboard/clipboard,
 input/keyboard.rs, input/clipboard.rs); a batch framework writes files and
-arrays instead (SURVEY §2.4 "TPU equivalent"). The `Auto` method-resolution
+arrays instead (SURVEY §2.4). The `Auto` method-resolution
 idea (input/window.rs:254-290) survives as :func:`auto_sink` picking a sink
 from the output path/extension.
 """

@@ -1,7 +1,7 @@
 """Minimal RFC 6455 WebSocket client for external-service egress.
 
 Behavioral parity with the reference's transport
-(/root/reference/src-tauri/src/modules/network/websocket.rs:92-330):
+(reference: src-tauri/src/modules/network/websocket.rs:92-330):
 
 * auth via ``?xi_api_key=`` query parameter plus an ``Origin`` header
   (websocket.rs:156-162);

@@ -1,8 +1,11 @@
-"""Small shared utilities: rational-rate math, padding, pytree helpers."""
+"""Small shared utilities: rational-rate math, padding, pytree helpers, the
+persistent compile cache."""
 
 from __future__ import annotations
 
 import math
+import os
+from pathlib import Path
 from typing import Sequence
 
 import numpy as np
@@ -20,7 +23,7 @@ def rational_rate(input_rate: int, output_rate: int) -> tuple[int, int]:
 
 
 def round_up(x: int, multiple: int) -> int:
-    """Round ``x`` up to the nearest multiple (TPU lane/sublane alignment)."""
+    """Round ``x`` up to the nearest multiple."""
     return -(-x // multiple) * multiple
 
 
@@ -50,3 +53,23 @@ def stack_padded(arrays: Sequence[np.ndarray], multiple: int = 1) -> tuple[np.nd
     target = round_up(int(lengths.max()), multiple)
     out = np.stack([pad_to(np.asarray(a), target) for a in arrays])
     return out, lengths
+
+
+#: where the entry points keep XLA's persistent compile cache when
+#: ``JAX_COMPILATION_CACHE_DIR`` is unset: a fixed path (the path is part of
+#: the cache key, so a directory that moves never hits)
+DEFAULT_COMPILE_CACHE = Path(__file__).resolve().parents[2] / ".jax_cache"
+
+
+def setup_compile_cache() -> str:
+    """Point JAX's persistent compile cache at ``JAX_COMPILATION_CACHE_DIR``
+    when set (JAX reads it itself; no other path is set), else at
+    :data:`DEFAULT_COMPILE_CACHE`. Returns the directory in use. Call it from
+    an entry point, before the first compile."""
+    import jax
+
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    jax.config.update("jax_compilation_cache_dir", str(DEFAULT_COMPILE_CACHE))
+    return str(DEFAULT_COMPILE_CACHE)

@@ -5,7 +5,7 @@ Headline (BASELINE.json): audio-seconds/sec/chip on the decode -> 44.1k->16k
 polyphase resample -> 128-bin log-mel graph; vs_baseline is the ratio to the
 1000x-realtime target.
 
-Runs on whatever jax.devices() provides (the real TPU chip under the driver).
+Runs on a GPU only; without one it fails instead of timing the CPU.
 """
 
 from __future__ import annotations
@@ -16,10 +16,10 @@ import sys
 
 def main() -> int:
     from audioflow_tpu.bench import run_benchmark
+    from audioflow_tpu.utils import setup_compile_cache
 
-    # streaming (chunked-scan) mode of the same graph at batch 512: ~30%
-    # faster than the offline whole-array program, and large batches amortize
-    # this runtime's fixed per-dispatch overhead
+    setup_compile_cache()
+    # streaming (chunked-scan) mode of the same graph at batch 512
     result = run_benchmark("logmel_stream", batch=512, seconds=10.0)
     value = result["realtime_factor_per_chip"]
     line = {

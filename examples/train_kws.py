@@ -3,7 +3,7 @@
 Demonstrates the models/ story end to end: the trainable PCEN log-mel
 frontend + MLP head (models/trainable.py), SpecAugment feature masking
 (ops/augment.py), and the data-parallel train step (sharded over every
-local device when more than one is present; the same code scales to a TPU
+local device when more than one is present; the same code scales to a multi-GPU
 pod via `parallel.make_mesh`).
 
 Usage: python examples/train_kws.py [n_steps] [out_metrics.json]

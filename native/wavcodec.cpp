@@ -4,7 +4,7 @@
 // target (SURVEY §7.3 #5), so decode+downmix+pad for a whole file batch runs
 // here: multithreaded, one pass, writing straight into the padded [batch, T]
 // float32 staging buffer that jax.device_put ships to HBM. This is the
-// TPU-native counterpart of the reference's native (Rust) audio ingest
+// Native counterpart of the reference's native (Rust) audio ingest
 // (capture.rs); contract mirrors audioflow_tpu/io/wav.py, which is the
 // tested oracle.
 //

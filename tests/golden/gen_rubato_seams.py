@@ -1,5 +1,5 @@
 """Golden-vector generator: serial port of rubato FastFixedIn's
-accumulate/chunk semantics (VERDICT r2 item 9).
+accumulate/chunk semantics.
 
 The reference wraps ``rubato::FastFixedIn::<f32>`` (cubic polynomial,
 fixed 128-frame input chunks, resampler.rs:43-49) behind a

@@ -66,6 +66,40 @@ def test_envelope_matches_serial_loop(rng):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
 
 
+@pytest.mark.parametrize("t", [96, 97, 1000])
+def test_blocked_log_envelope_matches_serial_loop(rng, t):
+    """Blocks of 32 samples (ragged tail included), composed across blocks,
+    over two lanes with silence that the release has to bridge."""
+    from audioflow_tpu.ops.dynamics import log_envelope_from_rest
+
+    x = np.abs(rng.standard_normal((2, t))).astype(np.float32)
+    x[:, 10:80] = 0.0
+    r = 0.97
+    got = np.exp(np.asarray(log_envelope_from_rest(
+        jnp.log(jnp.maximum(jnp.asarray(x), 1e-30)), float(np.log(r)), block=32)))
+    want = np.zeros_like(x)
+    e = np.full(2, 1e-30)
+    for i in range(t):
+        e = np.maximum(np.maximum(x[:, i], 1e-30), r * e)
+        want[:, i] = e
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+def test_envelope_keeps_float32_precision_on_long_signals():
+    """Three million samples (about three minutes at 16 kHz, 50 ms release):
+    one cummax over the whole length would add a ramp of 3750, whose float32
+    rounding alone is 2e-4 of the envelope."""
+    t = 3_000_000
+    x = np.abs(0.4 * np.random.default_rng(1).standard_normal(t)).astype(np.float32)
+    x[t // 3 : t // 3 + 5000] = 0.0
+    r = float(np.exp(-1.0 / (50e-3 * 16000)))
+    got = np.asarray(envelope_peak_release(jnp.asarray(x), r), np.float64)
+    ramp = np.arange(t) * -np.log(r)
+    lx = np.log(np.maximum(x.astype(np.float64), 1e-30)) + ramp
+    want = np.exp(np.maximum.accumulate(lx) - ramp)
+    assert np.max(np.abs(got - want) / want) < 5e-6
+
+
 def test_limiter_caps_peaks(rng):
     x = (rng.standard_normal(8000) * 2.0).astype(np.float32)
     y = np.asarray(limiter(jnp.asarray(x), threshold_db=-1.0, sample_rate=16000))

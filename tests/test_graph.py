@@ -128,7 +128,7 @@ def test_recursive_node_after_latency_is_exact_from_sample_zero(rng, tail):
     latency-bearing node must NOT fold the upstream preroll into its carry
     (Graph._warmups zeroing). Before the fix, resample->biquad streamed
     diverged from offline by ~2e-3 over the filter's settle time — from the
-    very first valid sample, on CPU and TPU alike."""
+    very first valid sample, on every backend."""
     nodes = tail()
     g = chain(Resample(48000, 16000, "kaiser"), *nodes, input_rate=48000)
     chunk = g.chunk_granularity() * 4

@@ -68,3 +68,76 @@ def test_griffin_lim_init_phase_and_validation(rng):
     assert _spec_err(y, mag) < 0.02
     with pytest.raises(ValueError):
         ops.griffin_lim(mag, NFFT, HOP, momentum=1.0)
+
+
+# --- the 1024/256 configuration of the validate row, on the default
+# (matmul-DFT) path ---------------------------------------------------------
+
+
+def _signal(batch=2, seconds=1.5, sr=FS, seed=0):
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(sr * seconds)) / sr
+    rows = [
+        0.5 * np.sin(2 * np.pi * 440.0 * t)
+        + 0.2 * np.sin(2 * np.pi * 880.0 * t + 0.7)
+        + 0.02 * rng.standard_normal(t.size)
+    ]
+    for b in range(1, batch):
+        rows.append(0.4 * np.sin(2 * np.pi * (200.0 + 60 * b) * t))
+    return np.stack(rows).astype(np.float32)
+
+
+def _mag1024(xb):
+    return jnp.abs(ops.stft(jnp.asarray(xb), 1024, 256, impl="matmul", precision="highest"))
+
+
+def test_griffin_lim_tone_reconstruction_1024():
+    """GL recovers a tone only up to a global phase: the target magnitude
+    is matched (spectral convergence, the validate-row metric) and the
+    dominant frequency is right."""
+    t = np.arange(FS) / FS
+    x = (0.5 * np.sin(2 * np.pi * 440.0 * t)).astype(np.float32)
+    mag = _mag1024(x[None])
+    y = np.asarray(ops.griffin_lim(mag, 1024, 256, n_iter=8, length=FS))[0]
+    m2 = np.asarray(_mag1024(y[None]))[:, : mag.shape[-2]]
+    sc = np.linalg.norm(m2 - np.asarray(mag)) / np.linalg.norm(np.asarray(mag))
+    assert sc < 0.25, sc
+    sp = np.abs(np.fft.rfft(y * np.hanning(y.size)))
+    assert abs(np.argmax(sp) * FS / y.size - 440.0) < 3.0
+
+
+def test_griffin_lim_init_phase_oracle_is_kept_1024():
+    """Seeded with the true phase, two projections keep the waveform."""
+    xb = _signal(batch=1)
+    spec = ops.stft(jnp.asarray(xb), 1024, 256, impl="matmul", precision="highest")
+    y = np.asarray(
+        ops.griffin_lim(jnp.abs(spec), 1024, 256, n_iter=2, init_phase=jnp.angle(spec),
+                        length=xb.shape[-1], precision="highest")
+    )
+    sl = slice(2048, xb.shape[-1] - 2048)
+    assert np.abs(y[:, sl] - xb[:, sl]).max() / np.abs(xb).max() < 1e-3
+
+
+def test_griffin_lim_momentum_zero_and_length_1024():
+    mag = _mag1024(_signal(batch=1, seconds=1.0))
+    y = np.asarray(ops.griffin_lim(mag, 1024, 256, n_iter=2, momentum=0.0, length=12345))
+    assert y.shape == (1, 12345)
+    assert np.isfinite(y).all()
+
+
+def test_griffin_lim_lead_dims_match_flat_batch():
+    mag = _mag1024(_signal(batch=4, seconds=1.0))
+    y = np.asarray(ops.griffin_lim(jnp.reshape(mag, (2, 2, *mag.shape[1:])), 1024, 256, n_iter=1))
+    assert y.shape[:2] == (2, 2)
+    y2 = np.asarray(ops.griffin_lim(mag, 1024, 256, n_iter=1))
+    np.testing.assert_allclose(y.reshape(4, -1), y2, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize(
+    "kwargs, match",
+    [({"momentum": 1.0}, "momentum"), ({"momentum": -0.1}, "momentum"),
+     ({"impl": "pallas"}, "known: matmul, fft"), ({"impl": "auto"}, "known: matmul, fft")],
+)
+def test_griffin_lim_validation_errors(kwargs, match):
+    with pytest.raises(ValueError, match=match):
+        ops.griffin_lim(jnp.zeros((2, 16, 513)), 1024, 256, **kwargs)

@@ -167,7 +167,7 @@ def _float16_wav(n=64):
 
 
 def test_float16_wav_rejected_typed():
-    """Regression (ADVICE r1): fmt=FLOAT/bits=16 must raise IOError_, not a
+    """Regression: fmt=FLOAT/bits=16 must raise IOError_, not a
     raw ValueError from np.frombuffer that escapes the lane-isolation guard."""
     buf = _float16_wav()
     with pytest.raises(IOError_):

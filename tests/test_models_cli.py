@@ -75,9 +75,6 @@ def test_trainable_sharded_matches_single(rng):
 
 
 def test_graft_entry_compiles():
-    import sys
-
-    sys.path.insert(0, "/root/repo")
     import __graft_entry__ as ge
 
     import jax
@@ -88,9 +85,6 @@ def test_graft_entry_compiles():
 
 
 def test_graft_dryrun_multichip():
-    import sys
-
-    sys.path.insert(0, "/root/repo")
     import __graft_entry__ as ge
 
     ge.dryrun_multichip(8)
@@ -269,7 +263,7 @@ def test_cli_pitch(tmp_path, capsys):
     assert abs(out["median_f0_hz"] - 220.0) < 3.0
     # pyin-online: --lag plumbs through and t carries the half-frame shift
     # that puts the uncentered online framing on the centered timeline
-    # (ADVICE r4); the truncated tail (last `lag` frames) is documented
+    #; the truncated tail (last `lag` frames) is documented
     assert cli_main(
         ["pitch", "-i", str(p), "--method", "pyin-online", "--lag", "10",
          "--fmin", "80", "--fmax", "1200"]

@@ -511,8 +511,8 @@ def test_icqt_validation_and_hop_warning():
 
 def test_icqt_hybrid_default_config_tone_snr():
     """The framework's own defaults (hop 256 / 84 bins / 16 kHz) — 11x past
-    the painless cliff — round-trip at >= 30 dB via the hybrid inverse
-    (VERDICT r3 item 1). Bins sampled: the hop-aliased bottom pair (0, 1),
+    the painless cliff — round-trip at >= 30 dB via the hybrid inverse.
+    Bins sampled: the hop-aliased bottom pair (0, 1),
     the crossfade band (41, 43), mid (60), and the top edge (83); plus a
     two-tone row spanning both branches. One batched jitted call."""
     sr, hop, n_bins = 16000, 256, 84
@@ -586,7 +586,7 @@ def _band_noise(rng, n, sr, f_lo, f_hi):
 
 
 def test_icqt_hybrid_broadband_envelope():
-    """Honest envelope of the hybrid inverse (VERDICT r4 item 1a): above the
+    """Honest envelope of the hybrid inverse: above the
     painless cliff the sinusoidal branch reconstructs peaky/tonal content
     ONLY — band noise in that region comes back with MORE error energy than
     signal, and a pitched harmonic complex single-digit dB; the LS-dual
@@ -624,7 +624,7 @@ def test_icqt_hybrid_broadband_envelope():
 
 
 def test_cqt_multirate_roundtrip_broadband():
-    """The invertible variant (VERDICT r4 item 1b): per-octave painless hops
+    """The invertible variant: per-octave painless hops
     + joint hop-weighted dual — broadband round-trip at the framework
     default config where the hybrid fails. Design (f64) figures: 60.0 dB
     noise 800-2000, 57.3 dB harmonic complex, 40.5 dB worst tone; f32
@@ -737,9 +737,8 @@ def test_icqt_max_hop_scales_with_top_bin():
 # ------------------------------------------------------- online beat tracking
 
 def test_online_beat_track_agrees_with_dp_on_steady_tempo(rng):
-    """The causal tracker vs the offline Ellis DP on steady-tempo material
-    (the VERDICT r2 item-10 'Done' bar): tempo locked, F-measure ~1 after
-    warmup, metronome-regular intervals."""
+    """The causal tracker vs the offline Ellis DP on steady-tempo material:
+    tempo locked, F-measure ~1 after warmup, metronome-regular intervals."""
     sr, hop = FS, 256
     fr = sr / hop
     period = 30  # frames -> 125 BPM at 62.5 fps

@@ -126,7 +126,7 @@ def test_fft_stft_gathers_under_sharding(rng):
 
 
 def test_trainable_step_has_gradient_allreduce(rng):
-    """Conversely, the DP training step must all-reduce gradients over ICI."""
+    """Conversely, the DP training step must all-reduce gradients across devices."""
     from audioflow_tpu.models import TrainableFrontend, make_train_step
 
     model = TrainableFrontend(n_fft=256, hop=128, n_mels=8, n_classes=2)
@@ -437,7 +437,7 @@ def test_sequence_sharded_fir_matches_unsharded(rng):
 def test_sequence_sharded_frontend_end_to_end(rng):
     """The full resample->spectrogram->log-mel frontend, time-sharded on one
     long signal: equals the unsharded pipeline on the fully-covered frames,
-    with ppermutes as the ONLY collectives (VERDICT r2 item 4)."""
+    with ppermutes as the ONLY collectives."""
     import jax
 
     from audioflow_tpu import ops as O
@@ -469,7 +469,7 @@ def test_sequence_sharded_frontend_end_to_end(rng):
 
 
 def test_sequence_sharded_iir_matches_unsharded(rng):
-    """Time-sharded biquad cascade == unsharded (VERDICT r3 item 4): the
+    """Time-sharded biquad cascade == unsharded: the
     zero-state local pass + affine carry prefix + C A^n output correction
     reconstruct the continuous filter exactly (f32 reassociation only)."""
     from audioflow_tpu.models.pipelines import eq_bands_default
@@ -567,8 +567,7 @@ def test_session7_families_shard_with_zero_collectives(rng):
 
 
 def test_sequence_sharded_graph_master_chain(rng):
-    """compile_sharded(shard='time') — the Graph-level SP surface (VERDICT
-    r4 item 5): the config-3 master chain (BiquadChain + Limiter) on ONE
+    """compile_sharded(shard='time') — the Graph-level SP surface: the config-3 master chain (BiquadChain + Limiter) on ONE
     long signal equals the offline graph end to end."""
     from audioflow_tpu.models.pipelines import master_chain_graph
     from audioflow_tpu.parallel import compile_sharded, make_mesh

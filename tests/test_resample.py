@@ -156,7 +156,7 @@ def _rubato_fixture_path():
 
 
 def test_streaming_cubic_matches_rubato_seam_fixtures():
-    """VERDICT r2 item 9: the streaming cubic mode vs checked-in golden
+    """The streaming cubic mode vs checked-in golden
     vectors from an independent serial port of rubato FastFixedIn's
     accumulate/chunk semantics (f64 phase accumulator carried across
     128-sample chunk seams, f32 polynomial arithmetic, zero-pad flush —

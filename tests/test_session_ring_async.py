@@ -1,6 +1,6 @@
-"""StreamSession on the device staging accumulator (SURVEY §2.2 RingBuffer
-"TPU equivalent" — the linear form; ops/ring.py documents why circular
-addressing lost on this runtime) + lazy-result async push."""
+"""StreamSession on the device staging accumulator (SURVEY §2.2 RingBuffer —
+the linear form; ops/ring.py documents why it replaces circular addressing
+on the hot path) + lazy-result async push."""
 
 import numpy as np
 
@@ -31,7 +31,7 @@ def test_push_accumulates_in_device_ring_not_host():
 
 def test_push_is_lazy_until_polled():
     """No host materialization during the push loop (no sinks/events): the
-    device/host overlap VERDICT item — push dispatches, poll materializes."""
+    device/host overlap — push dispatches, poll materializes."""
     g = _graph()
     s = StreamSession(g, chunk_in=256).open()
     s.push(np.random.default_rng(0).standard_normal(2048).astype(np.float32))
@@ -101,7 +101,7 @@ def test_snapshot_restore_through_ring(tmp_path):
 def test_multi_chunk_drain_matches_single_and_offline():
     """Bulk pushes drain >=2 buffered chunks through ONE jitted lax.scan
     multi-step (bucketed 8/4/2) — same results as chunk-at-a-time, exactly
-    (ROADMAP 4b: amortizes this runtime's fixed per-dispatch charge)."""
+    (amortizes the fixed cost of a dispatch chain)."""
     sr = 48000
     g = chain(Resample(sr, 16000, "kaiser"), input_rate=sr)
     chunk = g.chunk_granularity() * 2
@@ -171,9 +171,8 @@ def test_snapshot_restore_across_multi_drain(tmp_path):
 
 def test_ragged_pushes_compile_bounded_shape_buckets():
     """Irregular push sizes must NOT compile one write program per length:
-    push pads host-side to power-of-two buckets (jit caches by shape; on TPU
-    each new shape is a fresh multi-second compile, which made a 50-push
-    ragged stream take minutes before bucketing)."""
+    push pads host-side to power-of-two buckets (jit caches by shape; each
+    new shape is a fresh compile)."""
     g = _graph()
     s = StreamSession(g, chunk_in=512).open()
     orig, seen = s._write, set()
@@ -197,9 +196,7 @@ def test_ragged_pushes_compile_bounded_shape_buckets():
 def test_open_precompiles_entire_first_push_chain():
     """open(precompile=True) must warm EVERY program the first chunk-cadence
     push dispatches — graph step, staging write at the canonical bucket,
-    chunk take — so the first live push never stalls on a compile (measured
-    1.8 s first push vs 75 ms steady on chip before the ring programs were
-    included). Asserted via the pjit C++ cache: sizes after open == sizes
+    chunk take — so the first live push never stalls on a compile. Asserted via the pjit C++ cache: sizes after open == sizes
     after the first push."""
     g = _graph()
     s = StreamSession(g, chunk_in=512).open()

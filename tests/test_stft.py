@@ -115,7 +115,7 @@ def test_stft_matmul_impl_matches_fft(rng, center):
 
 @pytest.mark.parametrize("n_fft,hop", [(1024, 256), (512, 128), (400, 160)])
 def test_stft_fourstep_impl_matches_fft(rng, n_fft, hop):
-    """Four-step factored DFT (N = N1 x N2, two short-K MXU stages + twiddle,
+    """Four-step factored DFT (N = N1 x N2, two short-K matmul stages + twiddle,
     ~8x fewer flops at n_fft=1024) agrees with the FFT — and the short
     contractions accumulate LESS error than the direct [N, N/2+1] banks."""
     x = rng.standard_normal(8192).astype(np.float32)
@@ -216,7 +216,7 @@ def test_stft_bad_impl():
 @pytest.mark.parametrize("center", [True, False])
 def test_spectrogram_onedot_matches_fft(rng, power_flag, center):
     """Combined cos|sin bank (sin's identically-zero k=0 / k=N/2 columns
-    dropped -> exactly n_fft columns, one zero-pad-waste MXU dot) == FFT."""
+    dropped -> exactly n_fft columns, one zero-pad-waste dot) == FFT."""
     from audioflow_tpu.ops import spectrogram
 
     x = rng.standard_normal((3, 8192)).astype(np.float32)

@@ -199,7 +199,7 @@ def test_retry_gives_up():
 
 
 def test_retry_zero_attempts_falls_back_to_single_connect():
-    """Regression (ADVICE r1): max_reconnect_attempts=0 used to raise a bare
+    """Regression: max_reconnect_attempts=0 used to raise a bare
     AssertionError from an empty loop; now it degenerates to one connect()."""
     c = WebSocketClient(
         WebSocketConfig(
